@@ -1,0 +1,118 @@
+"""Torch flat-vector (``getParameters()``) interop, numpy only.
+
+Copy of the flat-vector half of ``novel_vqa_tpu.core.checkpoint``, so the
+same ``lstm.h5`` ({encoder_w_q, embedding_w_q, multimodal_w}, as saved by
+002_train_vqa_arch1/002_train_baseline.lua:419-420) loads into both packages.
+The h5 files go through the port's own reader and writer (``core/h5.py``).
+
+Layout conventions:
+  * ``nn.Linear(in, out)`` stores ``weight`` as (out, in) row-major followed
+    by ``bias`` (out,); params here store the transpose (in, out), so flat
+    export writes ``w.T`` flattened;
+  * each LSTM layer contributes [i2h.weight, i2h.bias, h2h.weight, h2h.bias]
+    (LSTM_encoder.lua:32-33), layers in order; gate order [i, f, o, g].
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+
+from novel_vqa_torch.core.h5 import H5Reader, write_h5
+
+
+def _linear_to_flat(w_in_out: np.ndarray, b: np.ndarray) -> List[np.ndarray]:
+    """(in, out) weight + bias -> Torch [weight(out,in) row-major, bias]."""
+    return [np.ascontiguousarray(np.asarray(w_in_out).T).ravel(), np.asarray(b).ravel()]
+
+
+def _linear_from_flat(vec: np.ndarray, off: int, n_in: int, n_out: int):
+    w = vec[off : off + n_out * n_in].reshape(n_out, n_in).T.copy()
+    off += n_out * n_in
+    b = vec[off : off + n_out].copy()
+    off += n_out
+    return w, b, off
+
+
+def lstm_params_to_flat(layers: Sequence[Dict[str, np.ndarray]]) -> np.ndarray:
+    """[i2h.w, i2h.b, h2h.w, h2h.b] per layer (LSTM_encoder.lua:32-33)."""
+    parts: List[np.ndarray] = []
+    for layer in layers:
+        parts += _linear_to_flat(layer["wx"], layer["bx"])
+        parts += _linear_to_flat(layer["wh"], layer["bh"])
+    return np.concatenate([np.asarray(p, np.float32) for p in parts])
+
+
+def lstm_params_from_flat(
+    vec: np.ndarray, input_size: int, rnn_size: int, num_layers: int
+) -> List[Dict[str, np.ndarray]]:
+    off = 0
+    layers = []
+    for i in range(num_layers):
+        in_size = input_size if i == 0 else rnn_size
+        wx, bx, off = _linear_from_flat(vec, off, in_size, 4 * rnn_size)
+        wh, bh, off = _linear_from_flat(vec, off, rnn_size, 4 * rnn_size)
+        layers.append({"wx": wx, "bx": bx, "wh": wh, "bh": bh})
+    if off != vec.size:
+        raise ValueError(f"flat LSTM vector size mismatch: used {off} of {vec.size}")
+    return layers
+
+
+def arch1_to_flat(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Arch1 numpy params -> the three flat vectors of
+    002_train_baseline.lua:419-420."""
+    emb = params["embedding"]
+    embedding_w_q = np.concatenate(_linear_to_flat(emb["w"], emb["b"]))
+    encoder_w_q = lstm_params_to_flat(params["encoder"])
+    fus = params["fusion"]
+    cls = params["classifier"]
+    multimodal_w = np.concatenate(
+        _linear_to_flat(fus["wq"], fus["bq"])
+        + _linear_to_flat(fus["wi"], fus["bi"])
+        + _linear_to_flat(cls["w"], cls["b"])
+    )
+    return {
+        "encoder_w_q": encoder_w_q.astype(np.float32),
+        "embedding_w_q": embedding_w_q.astype(np.float32),
+        "multimodal_w": multimodal_w.astype(np.float32),
+    }
+
+
+def arch1_from_flat(vectors: Dict[str, np.ndarray], cfg) -> Dict[str, Any]:
+    """The three flat vectors -> arch1 numpy params for ``cfg``'s widths."""
+    V, E = cfg.vocab_size, cfg.input_encoding_size
+    H, L = cfg.rnn_size, cfg.rnn_layer
+    C, F, O = cfg.common_embedding_size, cfg.nhimage, cfg.num_output
+
+    ev = np.asarray(vectors["embedding_w_q"], np.float32)
+    w, b, off = _linear_from_flat(ev, 0, V, E)
+    if off != ev.size:
+        raise ValueError(f"embedding_w_q size mismatch: used {off} of {ev.size}")
+    embedding = {"w": w, "b": b}
+
+    encoder = lstm_params_from_flat(
+        np.asarray(vectors["encoder_w_q"], np.float32), E, H, L
+    )
+
+    mv = np.asarray(vectors["multimodal_w"], np.float32)
+    wq, bq, off = _linear_from_flat(mv, 0, 2 * H * L, C)
+    wi, bi, off = _linear_from_flat(mv, off, F, C)
+    cw, cb, off = _linear_from_flat(mv, off, C, O)
+    if off != mv.size:
+        raise ValueError(f"multimodal_w size mismatch: used {off} of {mv.size}")
+    return {
+        "embedding": embedding,
+        "encoder": encoder,
+        "fusion": {"wq": wq, "bq": bq, "wi": wi, "bi": bi},
+        "classifier": {"w": cw, "b": cb},
+    }
+
+
+def save_flat_h5(path: str, vectors: Dict[str, np.ndarray]) -> None:
+    write_h5(path, {k: np.asarray(v, np.float32) for k, v in vectors.items()})
+
+
+def load_flat_h5(path: str) -> Dict[str, np.ndarray]:
+    with H5Reader(path) as f:
+        return {k: f[k] for k in f.keys()}

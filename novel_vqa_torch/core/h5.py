@@ -1,0 +1,352 @@
+"""A small HDF5 reader and writer for flat files of plain arrays, numpy only.
+
+The port's data files (``data_prepro.h5``, ``data_img.h5``) and flat
+checkpoints (``lstm.h5``) are HDF5 files holding numeric datasets in the
+root group.  The machine with the card has no h5py and no libhdf5, so the
+port reads and writes that subset of the format itself:
+
+* reading: superblock versions 0-3; object headers versions 1 and 2 with
+  continuation blocks; root groups as a symbol table (B-tree v1, local
+  heap) or as compact link messages; datasets of fixed-point or
+  floating-point elements in contiguous or compact layout.  Anything else
+  (chunked or compressed storage, dense link storage, other element types)
+  raises ``ValueError``.
+* writing: superblock version 0 with a symbol-table root group and one
+  contiguous dataset per array, the layout h5py itself writes by default,
+  so h5py and the JAX package read these files too.
+
+Spec: the HDF5 File Format Specification, version 3.0.
+"""
+
+from __future__ import annotations
+
+import mmap
+import struct
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+
+SIGNATURE = b"\x89HDF\r\n\x1a\n"
+UNDEF = 0xFFFFFFFFFFFFFFFF
+
+_MSG_DATASPACE, _MSG_LINK, _MSG_DATATYPE, _MSG_LAYOUT = 0x01, 0x06, 0x03, 0x08
+_MSG_FILL, _MSG_CONTINUATION, _MSG_SYMBOL_TABLE = 0x05, 0x10, 0x11
+_MSG_LINK_INFO = 0x02
+
+
+def _u(buf: bytes, off: int, size: int) -> int:
+    return int.from_bytes(buf[off : off + size], "little")
+
+
+class H5Reader:
+    """Read-only view of the root group's datasets, memory-mapped.
+
+    ``keys()``, ``name in reader`` and ``reader[name]`` (a numpy array,
+    copied out on demand) mirror the slice of h5py's ``File`` API the port
+    uses.  Use it in a ``with`` block, which closes the mapping."""
+
+    def __init__(self, path: str):
+        self.path = path
+        with open(path, "rb") as f:
+            self._buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        buf = self._buf
+        if buf[:8] != SIGNATURE:
+            raise ValueError(f"{path}: not an HDF5 file")
+        version = buf[8]
+        if version in (0, 1):
+            self._so, self._sl = buf[13], buf[14]
+            off = 24 + (4 if version == 1 else 0)
+            self._base = _u(buf, off, self._so)
+            entry = off + 4 * self._so
+            root = _u(buf, entry + self._so, self._so)
+        elif version in (2, 3):
+            self._so, self._sl = buf[9], buf[10]
+            self._base = _u(buf, 12, self._so)
+            root = _u(buf, 12 + 3 * self._so, self._so)
+        else:
+            raise ValueError(f"{path}: unsupported superblock version {version}")
+        if self._so != 8 or self._sl != 8:
+            raise ValueError(f"{path}: only 8-byte offsets and lengths are supported")
+        self._links = dict(self._group_links(root))
+
+    # -- low level ---------------------------------------------------------
+
+    def _addr(self, a: int) -> int:
+        return self._base + a
+
+    def _messages(self, addr: int) -> Iterator[Tuple[int, bytes]]:
+        """(type, body) of every message of the object header at ``addr``."""
+        buf = self._buf
+        a = self._addr(addr)
+        blocks: List[Tuple[int, int, int]] = []  # (start, end, header version)
+        if buf[a : a + 4] == b"OHDR":
+            flags = buf[a + 5]
+            p = a + 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+            width = 1 << (flags & 0x03)
+            size = _u(buf, p, width)
+            p += width
+            blocks.append((p, p + size, 2))
+            creation_order = bool(flags & 0x04)
+        elif buf[a] == 1:
+            size = _u(buf, a + 8, 4)
+            blocks.append((a + 16, a + 16 + size, 1))
+            creation_order = False
+        else:
+            raise ValueError(f"{self.path}: unknown object header at {addr}")
+        while blocks:
+            p, end, hv = blocks.pop(0)
+            while p < end:
+                if hv == 1:
+                    if p + 8 > end:
+                        break
+                    mtype, msize = _u(buf, p, 2), _u(buf, p + 2, 2)
+                    p += 8
+                else:
+                    if p + 4 > end:
+                        break  # gap at the end of a v2 chunk
+                    mtype, msize = buf[p], _u(buf, p + 1, 2)
+                    p += 4 + (2 if creation_order else 0)
+                body = buf[p : p + msize]
+                p += msize
+                if mtype == _MSG_CONTINUATION:
+                    c_addr, c_len = _u(body, 0, 8), _u(body, 8, 8)
+                    c = self._addr(c_addr)
+                    if hv == 2:  # "OCHK" signature ... checksum
+                        blocks.append((c + 4, c + c_len - 4, 2))
+                    else:
+                        blocks.append((c, c + c_len, 1))
+                else:
+                    yield mtype, body
+
+    def _group_links(self, addr: int) -> Iterator[Tuple[str, int]]:
+        for mtype, body in self._messages(addr):
+            if mtype == _MSG_SYMBOL_TABLE:
+                yield from self._symbol_table(_u(body, 0, 8), _u(body, 8, 8))
+            elif mtype == _MSG_LINK:
+                link = self._link(body)
+                if link is not None:
+                    yield link
+            elif mtype == _MSG_LINK_INFO and _u(body, 2 + (8 if body[1] & 1 else 0), 8) != UNDEF:
+                raise ValueError(f"{self.path}: dense link storage is not supported")
+
+    def _link(self, body: bytes):
+        flags = body[1]
+        p = 2
+        link_type = 0
+        if flags & 0x08:
+            link_type = body[p]
+            p += 1
+        if flags & 0x04:
+            p += 8
+        if flags & 0x10:
+            p += 1
+        width = 1 << (flags & 0x03)
+        n = _u(body, p, width)
+        p += width
+        name = body[p : p + n].decode()
+        p += n
+        return (name, _u(body, p, 8)) if link_type == 0 else None
+
+    def _symbol_table(self, btree: int, heap: int) -> Iterator[Tuple[str, int]]:
+        buf = self._buf
+        h = self._addr(heap)
+        if buf[h : h + 4] != b"HEAP":
+            raise ValueError(f"{self.path}: bad local heap")
+        data = self._addr(_u(buf, h + 24, 8))
+
+        def name_at(off: int) -> str:
+            s = data + off
+            return buf[s : buf.find(b"\0", s)].decode()
+
+        def walk(node: int) -> Iterator[Tuple[str, int]]:
+            a = self._addr(node)
+            if buf[a : a + 4] == b"TREE":
+                for i in range(_u(buf, a + 6, 2)):  # children sit between keys
+                    yield from walk(_u(buf, a + 32 + 16 * i, 8))
+            elif buf[a : a + 4] == b"SNOD":
+                for i in range(_u(buf, a + 6, 2)):
+                    e = a + 8 + 40 * i
+                    yield name_at(_u(buf, e, 8)), _u(buf, e + 8, 8)
+            else:
+                raise ValueError(f"{self.path}: bad group B-tree node")
+
+        yield from walk(btree)
+
+    # -- datasets ----------------------------------------------------------
+
+    def keys(self) -> List[str]:
+        return list(self._links)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._links
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        if name not in self._links:
+            raise KeyError(f"{self.path}: no dataset {name!r}")
+        shape = dtype = layout = None
+        for mtype, body in self._messages(self._links[name]):
+            if mtype == _MSG_DATASPACE:
+                shape = _dataspace(body)
+            elif mtype == _MSG_DATATYPE:
+                dtype = _datatype(body)
+            elif mtype == _MSG_LAYOUT:
+                layout = body
+        if shape is None or dtype is None or layout is None:
+            raise ValueError(f"{self.path}: {name!r} is not a dataset")
+        count = int(np.prod(shape, dtype=np.int64))
+        if layout[0] not in (3, 4):
+            raise ValueError(f"{self.path}: {name!r}: layout version {layout[0]} unsupported")
+        if layout[1] == 0:  # compact
+            raw = layout[4 : 4 + _u(layout, 2, 2)]
+            arr = np.frombuffer(raw, dtype, count)
+        elif layout[1] == 1:  # contiguous
+            addr = _u(layout, 2, 8)
+            if addr == UNDEF:  # never written: the fill value, zero
+                arr = np.zeros(count, dtype)
+            else:
+                arr = np.frombuffer(self._buf, dtype, count, self._addr(addr))
+        else:
+            raise ValueError(f"{self.path}: {name!r}: chunked storage is not supported")
+        # a copy in native byte order, owning its memory past close()
+        return arr.reshape(shape).astype(dtype.newbyteorder("="))
+
+    def close(self) -> None:
+        self._buf.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def _dataspace(body: bytes) -> Tuple[int, ...]:
+    version, ndims = body[0], body[1]
+    if version == 1:
+        p = 8
+    elif version == 2:
+        if body[3] == 2:  # null dataspace
+            return (0,)
+        p = 4
+    else:
+        raise ValueError(f"dataspace version {version} unsupported")
+    return tuple(_u(body, p + 8 * i, 8) for i in range(ndims))
+
+
+def _datatype(body: bytes) -> np.dtype:
+    cls = body[0] & 0x0F
+    bits = body[1]
+    size = _u(body, 4, 4)
+    order = ">" if bits & 0x01 else "<"
+    if cls == 0:  # fixed-point
+        kind = "i" if bits & 0x08 else "u"
+    elif cls == 1:  # floating-point
+        kind = "f"
+    else:
+        raise ValueError(f"datatype class {cls} unsupported")
+    return np.dtype(f"{order}{kind}{size}")
+
+
+# ---------------------------------------------------------------------------
+# writer
+# ---------------------------------------------------------------------------
+
+def _pad8(b: bytes) -> bytes:
+    return b + b"\0" * (-len(b) % 8)
+
+
+def _message_v1(mtype: int, body: bytes) -> bytes:
+    body = _pad8(body)
+    return struct.pack("<HHB3x", mtype, len(body), 0) + body
+
+
+def _datatype_message(dtype: np.dtype) -> bytes:
+    size = dtype.itemsize
+    if dtype.kind in "iu":
+        bits = 0x08 if dtype.kind == "i" else 0x00  # bit 3: signed
+        return struct.pack("<B3BI", 0x10, bits, 0, 0, size) + struct.pack("<HH", 0, 8 * size)
+    if dtype.kind == "f":
+        exp, man, bias = {2: (5, 10, 15), 4: (8, 23, 127), 8: (11, 52, 1023)}[size]
+        # 0x20: the mantissa's leading 1 is implied; then the sign bit's place
+        return struct.pack("<B3BI", 0x11, 0x20, 8 * size - 1, 0, size) + struct.pack(
+            "<HHBBBBI", 0, 8 * size, man, exp, 0, man, bias
+        )
+    raise ValueError(f"dtype {dtype} cannot be written")
+
+
+def _dataset_messages(a: np.ndarray, data_addr: int) -> bytes:
+    return (
+        _message_v1(_MSG_DATASPACE, struct.pack("<BBBx4x", 1, a.ndim, 0)
+                    + b"".join(struct.pack("<Q", d) for d in a.shape))
+        + _message_v1(_MSG_DATATYPE, _datatype_message(a.dtype))
+        # fill value v2 as h5py writes it: late allocation, written if set
+        + _message_v1(_MSG_FILL, struct.pack("<BBBBI", 2, 2, 2, 1, 0))
+        + _message_v1(_MSG_LAYOUT, struct.pack("<BBQQ", 3, 1, data_addr, a.nbytes))
+    )
+
+
+def write_h5(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """Write ``arrays`` as contiguous datasets in the root group of a new
+    HDF5 file at ``path`` (superblock 0, symbol-table root group)."""
+    names = sorted(arrays, key=str.encode)  # a symbol table node is sorted
+    datas = []
+    for n in names:
+        a = np.ascontiguousarray(arrays[n])
+        if a.dtype.kind not in "iuf":
+            raise ValueError(f"{n}: dtype {a.dtype} cannot be written")
+        datas.append(a.astype(a.dtype.newbyteorder("<")))
+    leaf_k = max(4, -(-len(names) // 2))  # one symbol table node holds 2K links
+    internal_k = 16
+
+    # local heap: offset 0 holds the empty name, the B-tree's first key
+    heap_data = b"\0" * 8
+    name_off = []
+    for n in names:
+        name_off.append(len(heap_data))
+        heap_data += _pad8(n.encode() + b"\0")
+
+    root_ohdr = 96  # right after the superblock
+    heap = root_ohdr + 40
+    heap_seg = heap + 32
+    btree = heap_seg + len(heap_data)
+    snod = btree + 24 + (4 * internal_k + 1) * 8
+    p = snod + 8 + 2 * leaf_k * 40
+    ohdr_addr = []
+    for a in datas:
+        ohdr_addr.append(p)
+        p += 16 + len(_dataset_messages(a, 0))
+    data_addr = []
+    for a in datas:
+        data_addr.append(p)
+        p += a.nbytes + (-a.nbytes % 8)
+
+    out = bytearray(p)
+    out[0:96] = (
+        SIGNATURE
+        + struct.pack("<8B", 0, 0, 0, 0, 0, 8, 8, 0)
+        + struct.pack("<HHI", leaf_k, internal_k, 0)
+        + struct.pack("<QQQQ", 0, UNDEF, p, UNDEF)
+        # root symbol table entry, cache type 1: the B-tree and heap
+        + struct.pack("<QQI4xQQ", 0, root_ohdr, 1, btree, heap)
+    )
+    out[root_ohdr:heap] = struct.pack("<BBHII4x", 1, 0, 1, 1, 24) + _message_v1(
+        _MSG_SYMBOL_TABLE, struct.pack("<QQ", btree, heap)
+    )
+    # free-list head 1 = no free block (H5HL_FREE_NULL)
+    out[heap:heap_seg] = b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_data), 1, heap_seg)
+    out[heap_seg:btree] = heap_data
+    tree = b"TREE" + struct.pack("<BBHQQ", 0, 0, 1 if names else 0, UNDEF, UNDEF)
+    if names:  # one leaf: key "" | the symbol table node | key = last name
+        tree += struct.pack("<QQQ", 0, snod, name_off[-1])
+    out[btree : btree + len(tree)] = tree
+    node = b"SNOD" + struct.pack("<BxH", 1, len(names))
+    for off, oh in zip(name_off, ohdr_addr):
+        node += struct.pack("<QQI4x16x", off, oh, 0)
+    out[snod : snod + len(node)] = node
+    for a, oh, da in zip(datas, ohdr_addr, data_addr):
+        msgs = _dataset_messages(a, da if a.nbytes else UNDEF)  # empty: no storage
+        out[oh : oh + 16 + len(msgs)] = struct.pack("<BBHII4x", 1, 0, 4, 1, len(msgs)) + msgs
+        out[da : da + a.nbytes] = a.tobytes()
+    with open(path, "wb") as f:
+        f.write(bytes(out))

@@ -1,0 +1,161 @@
+"""The two LSTM kernels: plain versions, wrappers and launch counts.
+
+``lstm_seq`` replaces ``novel_vqa_tpu/ops/pallas_lstm.py::_seq_kernel`` (one
+masked layer over all T steps) and ``lstm_step`` replaces
+``_fused_step_kernel`` (one fused cell step); both CUDA kernels are in
+``csrc/lstm.cu``.  Each wrapper runs its plain PyTorch version when the
+tensor it is given lies on the CPU, and on a CUDA tensor launches its kernel
+or raises: there is no fallback.  Each wrapper counts its launches in a
+plain integer attribute (``lstm_seq.launches``), so a run can show that its
+path went through the kernel.
+
+Both take ``b = bx + bh`` (the Pallas kernels' convention) and weights
+stored (in, 4H), gate order i, f, o, g.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from novel_vqa_torch.kernels.build import library
+
+SOURCE = "lstm.cu"
+
+
+def _cell(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    H = c.shape[-1]
+    i = torch.sigmoid(gates[:, 0 * H : 1 * H])
+    f = torch.sigmoid(gates[:, 1 * H : 2 * H])
+    o = torch.sigmoid(gates[:, 2 * H : 3 * H])
+    g = torch.tanh(gates[:, 3 * H : 4 * H])
+    c_new = f * c + i * g
+    return c_new, o * torch.tanh(c_new)
+
+
+def lstm_step_plain(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM cell step (ops/lstm.py:106-122 of the JAX package):
+    returns (c', h')."""
+    return _cell(x @ wx + h @ wh + b, c)
+
+
+def lstm_seq_plain(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One masked layer over all T steps from a zero state
+    (``_xla_seq_reference``, pallas_lstm.py:244-266): xs (T, N, In), mask
+    (T, N); returns the final (c, h) and the (T, N, H) post-mask hidden
+    sequence."""
+    T, N, _ = xs.shape
+    H = wh.shape[0]
+    c = xs.new_zeros(N, H)
+    h = xs.new_zeros(N, H)
+    hs = []
+    for t in range(T):
+        c_new, h_new = _cell(xs[t] @ wx + h @ wh + b, c)
+        m = mask[t][:, None] > 0
+        c = torch.where(m, c_new, c)
+        h = torch.where(m, h_new, h)
+        hs.append(h)
+    return c, h, torch.stack(hs)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = library(SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nvqa_lstm_seq_forward.argtypes = [p] * 8 + [i] * 4 + [p]
+    lib.nvqa_lstm_seq_forward.restype = i
+    lib.nvqa_lstm_step_forward.argtypes = [p] * 8 + [i] * 3 + [p]
+    lib.nvqa_lstm_step_forward.restype = i
+    lib.nvqa_cuda_error_string.argtypes = [i]
+    lib.nvqa_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}; the CUDA LSTM kernels take float32 only")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    """Raise on a failed launch; a shape whose staged rows need more shared
+    memory than the card offers fails here, at ``cudaFuncSetAttribute``."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}: {lib.nvqa_cuda_error_string(err).decode()}")
+
+
+def lstm_seq(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Seq kernel wrapper: (c, h, hs) of one masked layer, as
+    :func:`lstm_seq_plain`."""
+    if xs.device.type == "cpu":
+        return lstm_seq_plain(xs, mask, wx, wh, b)
+    if xs.device.type != "cuda":
+        raise ValueError(f"lstm_seq: unsupported device {xs.device}")
+    T, N, In = xs.shape
+    H = wh.shape[0]
+    if T < 1 or N < 1:
+        raise ValueError(f"lstm_seq: empty input of shape {tuple(xs.shape)}")
+    dev = xs.device
+    for name, t, shape in (
+        ("xs", xs, (T, N, In)), ("mask", mask, (T, N)), ("wx", wx, (In, 4 * H)),
+        ("wh", wh, (H, 4 * H)), ("b", b, (4 * H,)),
+    ):
+        _check(name, t, shape, dev)
+    lib = _lib()
+    c = torch.empty(N, H, device=dev)
+    h = torch.empty(N, H, device=dev)
+    hs = torch.empty(T, N, H, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.nvqa_lstm_seq_forward(
+            xs.data_ptr(), mask.data_ptr(), wx.data_ptr(), wh.data_ptr(),
+            b.data_ptr(), c.data_ptr(), h.data_ptr(), hs.data_ptr(),
+            T, N, In, H, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(lib, err, f"lstm_seq launch (T={T}, N={N}, In={In}, H={H})")
+    lstm_seq.launches += 1
+    return c, h, hs
+
+
+lstm_seq.launches = 0
+
+
+def lstm_step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step kernel wrapper: (c', h') of one cell step, as
+    :func:`lstm_step_plain`."""
+    if x.device.type == "cpu":
+        return lstm_step_plain(x, h, c, wx, wh, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"lstm_step: unsupported device {x.device}")
+    N, In = x.shape
+    H = wh.shape[0]
+    if N < 1:
+        raise ValueError("lstm_step: empty batch")
+    dev = x.device
+    for name, t, shape in (
+        ("x", x, (N, In)), ("h", h, (N, H)), ("c", c, (N, H)),
+        ("wx", wx, (In, 4 * H)), ("wh", wh, (H, 4 * H)), ("b", b, (4 * H,)),
+    ):
+        _check(name, t, shape, dev)
+    lib = _lib()
+    c_out = torch.empty(N, H, device=dev)
+    h_out = torch.empty(N, H, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.nvqa_lstm_step_forward(
+            x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(),
+            wh.data_ptr(), b.data_ptr(), c_out.data_ptr(), h_out.data_ptr(),
+            N, In, H, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(lib, err, f"lstm_step launch (N={N}, In={In}, H={H})")
+    lstm_step.launches += 1
+    return c_out, h_out
+
+
+lstm_step.launches = 0

@@ -1,0 +1,161 @@
+"""Fused-gate LSTM: single step, multi-layer stack, masked time scan.
+
+Port of ``novel_vqa_tpu.ops.lstm`` for deterministic (eval) mode.  Reference
+math (002_train_vqa_arch1/misc/LSTM.lua:41-59):
+
+    gates = x @ Wx + bx + h @ Wh + bh
+    i, f, o = sigmoid(gates[0:H]), sigmoid(gates[H:2H]), sigmoid(gates[2H:3H])
+    g       = tanh(gates[3H:4H])
+    c' = f * c + i * g
+    h' = o * tanh(c')
+
+Layer params are dicts {wx (in, 4H), bx, wh (H, 4H), bh}; ``bx`` and ``bh``
+stay separate to keep the Torch flat-vector layout, and are summed where a
+kernel is called.
+
+Routing mirrors the JAX package, with the card in the TPU's place:
+  * a whole-sequence encode from a zero state (no ``init_state``, no
+    ``return_sequence``) runs one seq-kernel launch per layer, layer k+1 fed
+    layer k's per-step hidden states (``pallas_lstm_encode``);
+  * every other encode steps cell by cell through :func:`lstm_step`, whose
+    cell is the step kernel.
+The kernel wrappers (``kernels/lstm.py``) launch the CUDA kernels on CUDA
+tensors, take only float32 there, and run their plain versions on CPU
+tensors.  Training mode (dropout, the backward) comes with the training
+slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from novel_vqa_torch.core.device import resolve_device
+from novel_vqa_torch.kernels import lstm as kernels
+
+LSTMLayerParams = Dict[str, torch.Tensor]  # {"wx", "bx", "wh", "bh"}
+
+
+def lstm_layer_init(
+    generator: torch.Generator,
+    input_size: int,
+    rnn_size: int,
+    scale: float = 0.08,
+    device: str | torch.device = "cuda",
+) -> LSTMLayerParams:
+    """Uniform(-scale, scale) init, matching ``encoder_w_q:uniform(-0.08, 0.08)``
+    (002_train_vqa_arch1/002_train_baseline.lua:178).  The draws come from
+    ``generator`` on the CPU; the params land on ``device``, ``cuda``
+    unless the caller asks for ``cpu``."""
+    device = resolve_device(device)
+
+    def u(*shape):
+        t = torch.rand(*shape, generator=generator, dtype=torch.float32)
+        return (t * (2 * scale) - scale).to(device)
+
+    return {
+        "wx": u(input_size, 4 * rnn_size),
+        "bx": u(4 * rnn_size),
+        "wh": u(rnn_size, 4 * rnn_size),
+        "bh": u(4 * rnn_size),
+    }
+
+
+def lstm_step(
+    params: LSTMLayerParams, x: torch.Tensor, c: torch.Tensor, h: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step. x: (N, in); c, h: (N, H). Returns (c', h')."""
+    return kernels.lstm_step(
+        x.contiguous(), h.contiguous(), c.contiguous(),
+        params["wx"], params["wh"], params["bx"] + params["bh"],
+    )
+
+
+def lstm_stack_step(
+    params: Sequence[LSTMLayerParams],
+    x: torch.Tensor,
+    state: Tuple[torch.Tensor, torch.Tensor],  # (c, h) each (L, N, H)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-layer step: layer k+1 reads layer k's new h."""
+    c, h = state
+    new_c: List[torch.Tensor] = []
+    new_h: List[torch.Tensor] = []
+    inp = x
+    for layer_idx, layer in enumerate(params):
+        c_l, h_l = lstm_step(layer, inp, c[layer_idx], h[layer_idx])
+        new_c.append(c_l)
+        new_h.append(h_l)
+        inp = h_l
+    return torch.stack(new_c), torch.stack(new_h)
+
+
+def pack_state(c: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Pack (L, N, H) c/h into the Torch packed-state layout [c1, h1, c2, h2,
+    ...] of width 2*L*H (misc/LSTM.lua:21-23,70)."""
+    parts = []
+    for layer in range(c.shape[0]):
+        parts.append(c[layer])
+        parts.append(h[layer])
+    return torch.cat(parts, dim=-1)
+
+
+def unpack_state(packed: torch.Tensor, num_layers: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`pack_state`."""
+    rnn_size = packed.shape[-1] // (2 * num_layers)
+    cs, hs = [], []
+    for layer in range(num_layers):
+        off = 2 * layer * rnn_size
+        cs.append(packed[..., off : off + rnn_size])
+        hs.append(packed[..., off + rnn_size : off + 2 * rnn_size])
+    return torch.stack(cs), torch.stack(hs)
+
+
+def lstm_encode(
+    params: Sequence[LSTMLayerParams],
+    xs: torch.Tensor,  # (T, N, in) time-major inputs
+    mask: torch.Tensor,  # (T, N) 1.0 where the step is active for that row
+    *,
+    init_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    return_sequence: bool = False,
+):
+    """Masked dense scan over time, deterministic.
+
+    ``state = where(mask_t, stack_step(state, x_t), state)``: rows keep their
+    previous (initially zero) state on inactive steps, which reproduces the
+    reference's right-aligned ragged batching (misc/RNNUtils.lua:84-125).
+
+    Returns the final (c, h), each (L, N, H), or ``((c, h), (cs, hs))`` with
+    the per-step states, each (T, L, N, H), when ``return_sequence``.
+    """
+    if init_state is None and not return_sequence:
+        mask = mask.contiguous()
+        cs, hs_final = [], []
+        inp = xs.contiguous()
+        for layer in params:
+            c, h, hs = kernels.lstm_seq(
+                inp, mask, layer["wx"], layer["wh"], layer["bx"] + layer["bh"]
+            )
+            cs.append(c)
+            hs_final.append(h)
+            inp = hs
+        return torch.stack(cs), torch.stack(hs_final)
+
+    seq_len, batch, _ = xs.shape
+    if init_state is None:
+        rnn_size = params[0]["wh"].shape[0]
+        zeros = xs.new_zeros(len(params), batch, rnn_size)
+        init_state = (zeros, zeros)
+    c, h = init_state
+    cs_seq, hs_seq = [], []
+    for t in range(seq_len):
+        c_new, h_new = lstm_stack_step(params, xs[t], (c, h))
+        m = mask[t][None, :, None] > 0
+        c = torch.where(m, c_new, c)
+        h = torch.where(m, h_new, h)
+        if return_sequence:
+            cs_seq.append(c)
+            hs_seq.append(h)
+    if return_sequence:
+        return (c, h), (torch.stack(cs_seq), torch.stack(hs_seq))
+    return c, h
