@@ -1,32 +1,60 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py                  # from the repository root, one CUDA card
+    python3 chip_smoke.py --seq2-mutants   # the seq2 check against broken kernels
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: nvcc builds every kernel source of the port into build/;
+  2. build: nvcc builds every kernel source of the port into build/, one
+     nvcc per source, all started together;
   3. kernels: each CUDA kernel against its plain PyTorch version on the
-     card at the eval path's shapes and at odd shapes (atol/rtol 1e-5),
-     with its time, its plain version's time, one PyTorch library call's
-     time as a yardstick, and its bound on an H100 SXM;
-  4. slice: arch1 test-split inference through the eval CLI at the
+     card at the main paths' shapes and at odd shapes (the fp32 kernels
+     within atol/rtol 1e-5; the bf16 seq2 kernel step by step against its
+     plain version replayed from the kernel's own saved states, within
+     1e-5 and one bf16 ulp, and run free within SEQ2_FREE_ATOL), with its
+     time, its plain version's time, one PyTorch library call's time as a
+     yardstick, and its bound on an H100 SXM;
+  4. autograd: the forward-only kernel wrappers refuse an input that
+     requires grad under grad mode, and launch nothing;
+  5. slice: arch1 test-split inference through the eval CLI at the
      reference width (vocab 12782, E=200, 2x512 LSTM, 4096-d fc7, common
      1024, 1000 answers, T=16, batch 500) on a synthetic split with random
      seeded weights, in both store modes; the seq kernel's launch count,
      identical result JSONs, and the scores of the first batches against a
      forward through the plain LSTM;
-  5. step route: ``lstm_encode(return_sequence=True)`` at the same width,
+  6. step route: ``lstm_encode(return_sequence=True)`` at the same width,
      which steps cell by cell through the step kernel, against the plain
-     step.
+     step;
+  7. route agreement: at the reference width and dropout 0, the arch1
+     loss and gradients of one batch through the ``NOVEL_VQA_FUSED2=1``
+     route (the seq2 kernel, bf16 storage) against the default route (the
+     f32 per-step cell), within ROUTE_TOL;
+  8. train slice: the train CLI at the reference width on a synthetic
+     train/val/test split, both routes, ``--steps_per_dispatch`` 1 and 10:
+     seq2 launches equal the iterations under FUSED2 (none otherwise),
+     validation launches the seq kernel, every loss is finite; the
+     train-step time per route (CUDA events) and its device time by kernel
+     (torch.profiler); ``train_steps_scan`` of 10 steps makes no host sync
+     (``torch.cuda.set_sync_debug_mode("error")``); then the eval CLI on
+     the trained ``lstm.h5``.
 Then a line with nvidia-smi's name and power limit, one JSON line listing
 every kernel, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without a card it exits non-zero at
 once.  Imports torch, numpy, the standard library and the port only.
+
+``--seq2-mutants`` runs phases 1-2 and then shows that the seq2 check is
+tight enough: it builds variants of csrc/lstm2.cu, each with one of the
+kernel's bf16 roundings left out (in a temporary directory; the checkout
+is not touched), and exits 0 only if the kernel passes the check and every
+variant fails it.
 """
 
 from __future__ import annotations
 
+import argparse
+import concurrent.futures
+import contextlib
 import json
 import os
 import statistics
@@ -34,26 +62,47 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, dense bf16 on the tensor cores, and HBM3 bandwidth
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 TOL = dict(rtol=1e-5, atol=1e-5)
 SCORE_TOL = 1e-4
+# seq2 kernel vs its plain version run free from the same inputs: a
+# last-bit f32 difference can flip a bf16 rounding of h, and the flip feeds
+# every later step, so the two drift apart by about one bf16 ulp of |h| < 1
+# on the saved states and 6e-4 on the f32 finals.  These bounds hold that
+# drift; they cannot tell the kernel from one without its bf16 roundings,
+# which drifts as far.  The replay check (kernels/lstm2.replay_errors),
+# which no flip survives, does.
+SEQ2_FREE_ATOL = {"finals": 2e-3, "hs": 2.0**-8}
+# FUSED2 route (bf16 storage) vs the default route (f32): loss relative
+# error, and each gradient's error relative to its largest entry (the JAX
+# package's bound for this comparison, tests/test_pallas_lstm.py:278)
+ROUTE_TOL = 5e-2
 SEED = 1234
 REPS = 20
 
-SOURCE = "novel_vqa_torch/csrc/lstm.cu"  # both kernels
+SOURCES = ("lstm.cu", "lstm2.cu")  # csrc/, built in parallel
+SOURCE = "novel_vqa_torch/csrc/lstm.cu"  # seq and step kernels
+SEQ2_SOURCE = "novel_vqa_torch/csrc/lstm2.cu"
 SEQ_REPLACES = "novel_vqa_tpu/ops/pallas_lstm.py:173 (_seq_kernel)"
 STEP_REPLACES = "novel_vqa_tpu/ops/pallas_lstm.py:40 (_fused_step_kernel)"
+SEQ2_REPLACES = "novel_vqa_tpu/ops/pallas_lstm2.py:56 (_seq2_kernel)"
 
 # the reference width (EvalConfig defaults, 002_train_baseline.lua:33-38)
 V, E, H, L, F, C, O, T, BATCH = 12782, 200, 512, 2, 4096, 1024, 1000, 16, 500
 N_TEST, N_IMG, N_MC = 4950, 2000, 18
+# the train slice's synthetic split and run length
+N_TRAIN, N_VAL, N_TEST_TRAIN = 5000, 1000, 1000
+TRAIN_ITERS = 20
 
 
 def emit(obj) -> None:
@@ -83,8 +132,8 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -133,6 +182,7 @@ def seq_case(K, N, In, H_, gen, dev, timed):
         nbytes = 4.0 * (xs.numel() + mask.numel() + wx.numel() + wh.numel() + b.numel()
                         + 2 * N * H_ + T * N * H_)
         lstm = torch.nn.LSTM(In, H_).to(dev)
+        lstm.flatten_parameters()  # cuDNN's packed weight layout
         with torch.no_grad():
             library = time_ms(lambda: lstm(xs))
         row.update(
@@ -169,40 +219,209 @@ def step_case(K, N, In, H_, gen, dev, timed):
     return row
 
 
+def seq2_inputs(N, In, H_, keep, gen, dev):
+    """The seq2 kernel's inputs in bf16 storage: inputs, the {0, 1/keep}
+    dropout multiplier, weights and biases in bf16, mask f32.  Training's
+    rate 0.5 gives {0, 2}; keep 0.7 gives a multiplier whose products are
+    not exact in bf16, so the layer-2 input's own rounding matters."""
+    bf = torch.bfloat16
+    xs = uniform(gen, dev, T, N, In).to(bf)
+    mask = ragged_mask(T, N, gen, dev)
+    drop = ((torch.rand(T, N, H_, generator=gen, device=dev) < keep).float() / keep).to(bf)
+    ws = [uniform(gen, dev, *shape, scale=scale).to(bf) for shape, scale in (
+        ((In, 4 * H_), 0.08), ((H_, 4 * H_), 0.08), ((4 * H_,), 0.16),
+        ((H_, 4 * H_), 0.08), ((H_, 4 * H_), 0.08), ((4 * H_,), 0.16))]
+    return (xs, mask, drop, *ws)
+
+
+def seq2_errors(K2, args):
+    """One kernel run on ``args``: its errors against the plain version run
+    free and replayed from the kernel's saved states, and the checks that
+    failed (an empty list passes)."""
+    got = K2.lstm_seq2(*args)
+    torch.cuda.synchronize()
+    ref = K2.lstm_seq2_plain(*args)
+    free = {n: float((a.float() - b.float()).abs().max()) for n, a, b in zip(K2.OUT_NAMES, got, ref)}
+    replay = K2.replay_errors(args, got)
+    failed = [f"replay {n}: {v:.3g} x its tolerance" for n, v in replay.items() if v > 1.0]
+    for n, v in free.items():
+        tol = SEQ2_FREE_ATOL["hs" if n.startswith("hs") else "finals"]
+        if v > tol:
+            failed.append(f"free {n}: {v:.3g} > {tol}")
+    return {"max_abs_err": max(free.values()), "errs": free, "replay_err_ratio": replay,
+            "hs_bf16_differ_share": [float((a != b).float().mean()) for a, b in zip(got[4:], ref[4:])],
+            "failed": failed}
+
+
+def seq2_case(K2, N, In, H_, keep, gen, dev, timed):
+    """The seq2 kernel against its plain version, both checks."""
+    args = seq2_inputs(N, In, H_, keep, gen, dev)
+    row = {"kernel": "lstm_seq2", "N": N, "T": T, "In": In, "H": H_, "keep": keep, **seq2_errors(K2, args)}
+    if row.pop("failed"):
+        raise AssertionError(f"lstm_seq2 N={N} In={In} H={H_} keep={keep}: {row}")
+    if timed:
+        xs, mask, drop, *ws = args
+        active = float(mask.sum())
+        flops = 2.0 * (In + 3 * H_) * 4 * H_ * active  # both layers, active (row, step) pairs
+        nbytes = (2.0 * (xs.numel() + drop.numel() + sum(w.numel() for w in ws)) + 4.0 * mask.numel()
+                  + 4.0 * 4 * N * H_ + 2.0 * 2 * T * N * H_)
+        from torch.backends.cudnn import rnn
+
+        lstm = torch.nn.LSTM(In, H_, num_layers=2, device=dev, dtype=torch.bfloat16)
+        with torch.no_grad():
+            # pack the weights into cuDNN's layout once, as flatten_parameters()
+            # does for fp16/fp32; it skips bf16, and cuDNN would then copy the
+            # weights into that layout on every call
+            torch._cudnn_rnn_flatten_weight(lstm._flat_weights, 4, In, rnn.get_cudnn_mode("LSTM"),
+                                            H_, 0, 2, False, False)
+            library = time_ms(lambda: lstm(xs))
+        row.update(
+            kernel_ms=time_ms(lambda: K2.lstm_seq2(*args)),
+            plain_ms=time_ms(lambda: K2.lstm_seq2_plain(*args)),
+            library_ms=library,
+            library="torch.nn.LSTM (cuDNN, 2 layers, bf16, unmasked, forward)",
+        )
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, BF16_FLOPS)
+    return row
+
+
+# The seq2 check against kernels that leave out one of csrc/lstm2.cu's bf16
+# roundings: (text in the source, its replacement).
+SEQ2_MUTANTS = {
+    "no_bf16_rounding": ("  return __bfloat162float(__float2bfloat16_rn(x));", "  return x;"),
+    "h1_f32_into_wh1": ("h1_nxt[s] = hb;", "h1_nxt[s] = h1_s[s];"),
+    "h2_f32_into_wh2": ("h2_nxt[s] = hb;", "h2_nxt[s] = h2_s[s];"),
+    "d_from_f32_h1": ("round_bf16(hb * __bfloat162float(drop[o]))",
+                      "round_bf16(h1_s[s] * __bfloat162float(drop[o]))"),
+    "d_unrounded": ("round_bf16(hb * __bfloat162float(drop[o]))", "hb * __bfloat162float(drop[o])"),
+}
+# the main shape at training's multiplier {0, 2}, and an odd one at keep 0.7
+MUTANT_CASES = ((BATCH, E, H, 0.5), (13, 24, 600, 0.7))
+
+
+def run_seq2_mutants(K2, dev):
+    """Build each mutant in a temporary directory (one nvcc each, all
+    started together), run the seq2 check on it at MUTANT_CASES through the
+    port's own wrapper, and return each one's errors; the kernel itself is
+    checked on the same inputs first."""
+    from novel_vqa_torch.kernels import build
+
+    source = (build.CSRC / K2.SOURCE).read_text()
+    out = {"kernel": {}, "mutants": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for header in build.CSRC.glob("*.cuh"):
+            (Path(tmp) / header.name).write_text(header.read_text())
+
+        def compile_mutant(name):
+            old, new = SEQ2_MUTANTS[name]
+            if source.count(old) != 1:
+                raise AssertionError(f"mutant {name}: {old!r} occurs {source.count(old)} times in {K2.SOURCE}")
+            src, lib = Path(tmp) / f"{name}.cu", Path(tmp) / f"{name}.so"
+            src.write_text(source.replace(old, new))
+            subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                           check=True, capture_output=True, text=True)
+            return lib
+
+        with concurrent.futures.ThreadPoolExecutor(len(SEQ2_MUTANTS)) as pool:
+            libs = dict(zip(SEQ2_MUTANTS, pool.map(compile_mutant, SEQ2_MUTANTS)))
+        for i, case in enumerate(MUTANT_CASES):
+            key = "N={} In={} H={} keep={}".format(*case)
+            args = seq2_inputs(*case, torch.Generator(device=dev).manual_seed(SEED + 10 + i), dev)
+            out["kernel"][key] = seq2_errors(K2, args)
+            for name, path in libs.items():
+                lib = build.load(path)
+                with mock.patch.object(K2, "library", lambda source: lib):
+                    out["mutants"].setdefault(name, {})[key] = seq2_errors(K2, args)
+    for name, cases in out["mutants"].items():
+        cases["rejected"] = any(r["failed"] for r in cases.values())
+    return out
+
+
 # --------------------------------------------------------------------------
-# phase 4: the slice at the reference width
+# phase 4: the forward-only wrappers refuse a training graph
 # --------------------------------------------------------------------------
 
-def write_split(tmp: str, rs: np.random.RandomState) -> None:
-    """A synthetic test split in the data_prepro.{h5,json} / data_img.h5
-    schema (000_prepro_vqa.py:273-293), test keys only."""
+def run_autograd_refusal(K, K2, dev):
+    """Each CUDA wrapper, given an input that requires grad under grad
+    mode, raises before its launch: its output would carry no grad_fn."""
+    bf = torch.bfloat16
+    N, In, H_ = 8, 24, 40
+    xs = torch.zeros(T, N, In, device=dev, requires_grad=True)
+    mask = torch.ones(T, N, device=dev)
+    x, hc = torch.zeros(N, In, device=dev, requires_grad=True), torch.zeros(N, H_, device=dev)
+    wx, wh, b = (torch.zeros(*s, device=dev) for s in ((In, 4 * H_), (H_, 4 * H_), (4 * H_,)))
+    w2 = [torch.zeros(*s, device=dev, dtype=bf) for s in (
+        (In, 4 * H_), (H_, 4 * H_), (4 * H_,), (H_, 4 * H_), (H_, 4 * H_), (4 * H_,))]
+    cases = {
+        "lstm_seq": lambda: K.lstm_seq(xs, mask, wx, wh, b),
+        "lstm_step": lambda: K.lstm_step(x, hc, hc, wx, wh, b),
+        "lstm_seq2": lambda: K2.lstm_seq2(xs.to(bf), mask, torch.ones(T, N, H_, device=dev, dtype=bf), *w2),
+    }
+    out = {}
+    for name, fn in cases.items():
+        before = (K.lstm_seq.launches, K.lstm_step.launches, K2.lstm_seq2.launches)
+        try:
+            fn()
+        except RuntimeError as err:
+            if "requires grad" not in str(err):
+                raise
+            out[name] = str(err)[:60]
+        else:
+            raise AssertionError(f"{name} accepted an input that requires grad under grad mode")
+        if (K.lstm_seq.launches, K.lstm_step.launches, K2.lstm_seq2.launches) != before:
+            raise AssertionError(f"{name} launched although it refused its input")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 5: the slice at the reference width
+# --------------------------------------------------------------------------
+
+def write_split(tmp: str, rs: np.random.RandomState, sizes) -> None:
+    """Synthetic splits in the data_prepro.{h5,json} / data_img.h5 schema
+    (000_prepro_vqa.py:273-293); ``sizes`` maps each split to its number
+    of questions.  Train and val carry answers, test MC choices; the
+    splits share one image table."""
     from novel_vqa_torch.core.h5 import write_h5
 
-    # question lengths around the VQA mean of ~6 words, capped at T
-    lengths = np.clip(rs.poisson(5.2, N_TEST) + 1, 1, T).astype(np.uint32)
-    ques = np.zeros((N_TEST, T), np.uint32)
-    for i, n in enumerate(lengths):
-        ques[i, :n] = rs.randint(1, V + 1, size=n)
-    mc = np.stack([rs.choice(O, N_MC, replace=False) + 1 for _ in range(N_TEST)]).astype(np.uint32)
-    mc[::97, N_MC // 2:] = 0  # some rows with fewer choices
-    mc[5] = 0  # a row with none: MC falls back to the OE answer
-    write_h5(os.path.join(tmp, "data_prepro.h5"), {
-        "ques_test": ques,
-        "ques_length_test": lengths,
-        "question_id_test": np.arange(N_TEST, dtype=np.uint32) * 10 + 7,
-        "img_pos_test": rs.randint(1, N_IMG + 1, size=N_TEST).astype(np.uint32),
-        "MC_ans_test": mc,
-    })
+    ques_h5, img_h5 = {}, {}
+    for split, n_q in sizes.items():
+        # question lengths around the VQA mean of ~6 words, capped at T
+        lengths = np.clip(rs.poisson(5.2, n_q) + 1, 1, T).astype(np.uint32)
+        ques = np.zeros((n_q, T), np.uint32)
+        for i, n in enumerate(lengths):
+            ques[i, :n] = rs.randint(1, V + 1, size=n)
+        ques_h5.update({
+            f"ques_{split}": ques,
+            f"ques_length_{split}": lengths,
+            f"question_id_{split}": np.arange(n_q, dtype=np.uint32) * 10 + 7,
+            f"img_pos_{split}": rs.randint(1, N_IMG + 1, size=n_q).astype(np.uint32),
+        })
+        if split == "test":
+            mc = np.stack([rs.choice(O, N_MC, replace=False) + 1 for _ in range(n_q)]).astype(np.uint32)
+            mc[::97, N_MC // 2:] = 0  # some rows with fewer choices
+            mc[5] = 0  # a row with none: MC falls back to the OE answer
+            ques_h5["MC_ans_test"] = mc
+        else:
+            key = "answers" if split == "train" else f"answers_{split}"
+            ques_h5[key] = rs.randint(1, O + 1, size=n_q).astype(np.uint32)
+    write_h5(os.path.join(tmp, "data_prepro.h5"), ques_h5)
     # fc7 features are post-ReLU: non-negative
     fc7 = np.maximum(rs.randn(N_IMG, F), 0).astype(np.float32)
-    write_h5(os.path.join(tmp, "data_img.h5"), {"images_test": fc7})
+    write_h5(os.path.join(tmp, "data_img.h5"), {f"images_{split}": fc7 for split in sizes})
     meta = {
         "ix_to_word": {str(i): f"w{i}" for i in range(1, V + 1)},
         "ix_to_ans": {str(i): f"a{i}" for i in range(1, O + 1)},
-        "unique_img_test": [f"im{i}.jpg" for i in range(N_IMG)],
     }
+    meta.update({f"unique_img_{split}": [f"im{i}.jpg" for i in range(N_IMG)] for split in sizes})
     with open(os.path.join(tmp, "data_prepro.json"), "w") as f:
         json.dump(meta, f)
+
+
+def data_argv(tmp: str):
+    return ["--input_img_h5", os.path.join(tmp, "data_img.h5"),
+            "--input_ques_h5", os.path.join(tmp, "data_prepro.h5"),
+            "--input_json", os.path.join(tmp, "data_prepro.json")]
 
 
 def plain_scores(params, cfg, tokens, image):
@@ -236,7 +455,7 @@ def run_slice(K, dev):
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        write_split(tmp, np.random.RandomState(SEED))
+        write_split(tmp, np.random.RandomState(SEED), {"test": N_TEST})
         cfg = arch1.Arch1Config(vocab_size=V, input_encoding_size=E, rnn_size=H, rnn_layer=L,
                                 nhimage=F, common_embedding_size=C, num_output=O)
         params = arch1.init_params(cfg, torch.Generator().manual_seed(SEED), device=dev)
@@ -247,9 +466,7 @@ def run_slice(K, dev):
         answers = {}
         for hbm in (1, 0):
             res = os.path.join(tmp, f"result_{hbm}")
-            argv = ["--input_img_h5", os.path.join(tmp, "data_img.h5"),
-                    "--input_ques_h5", os.path.join(tmp, "data_prepro.h5"),
-                    "--input_json", os.path.join(tmp, "data_prepro.json"),
+            argv = data_argv(tmp) + [
                     "--model_path", model, "--out_path", res,
                     "--hbm_resident", str(hbm), "--device", "cuda"]
             K.lstm_seq.launches = 0
@@ -341,7 +558,7 @@ def profile(fn, top: int = 8):
 
 
 # --------------------------------------------------------------------------
-# phase 5: the per-step route through the step kernel
+# phase 6: the per-step route through the step kernel
 # --------------------------------------------------------------------------
 
 def run_step_route(K, dev, gen):
@@ -386,13 +603,179 @@ def run_step_route(K, dev, gen):
             "seq_vs_step_route_max_abs_err": max_err((c2, h2), (c, h))}
 
 
-def main() -> int:
+# --------------------------------------------------------------------------
+# phase 7: the FUSED2 route against the default route
+# --------------------------------------------------------------------------
+
+def ref_cfg(**kw):
+    from novel_vqa_torch.models.vqa import arch1
+
+    return arch1.Arch1Config(vocab_size=V, input_encoding_size=E, rnn_size=H, rnn_layer=L,
+                             nhimage=F, common_embedding_size=C, num_output=O, **kw)
+
+
+@contextlib.contextmanager
+def fused2_route(on: bool):
+    """``NOVEL_VQA_FUSED2=1`` inside the block when ``on``, unset when not;
+    the caller's setting afterwards."""
+    old = os.environ.pop("NOVEL_VQA_FUSED2", None)
+    if on:
+        os.environ["NOVEL_VQA_FUSED2"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("NOVEL_VQA_FUSED2", None)
+        if old is not None:
+            os.environ["NOVEL_VQA_FUSED2"] = old
+
+
+def run_route_agreement(K2, dev):
+    """Loss and gradients of one reference-width batch at dropout 0."""
+    from novel_vqa_torch.core.tree import tree_leaves, value_and_grad
+    from novel_vqa_torch.models.vqa import arch1
+
+    cfg = ref_cfg(dropout=0.0)
+    params = arch1.init_params(cfg, torch.Generator().manual_seed(SEED + 2), device=dev)
+    rs = np.random.RandomState(SEED + 2)
+    tokens = np.zeros((BATCH, T), np.int32)
+    for i, n in enumerate(np.clip(rs.poisson(5.2, BATCH) + 1, 1, T)):
+        tokens[i, T - n:] = rs.randint(1, V + 1, size=n)  # right-aligned
+    image = np.maximum(rs.randn(BATCH, F), 0).astype(np.float32)
+    image /= np.linalg.norm(image, axis=1, keepdims=True)
+    labels = rs.randint(1, O + 1, size=BATCH).astype(np.int32)
+    batch = [torch.from_numpy(a).to(dev) for a in (tokens, image, labels)]
+
+    res = {}
+    for route in ("default", "fused2"):
+        with fused2_route(route == "fused2"):
+            K2.lstm_seq2.launches = 0
+            loss, grads = value_and_grad(arch1.loss_fn)(params, cfg, *batch, None)
+            torch.cuda.synchronize()
+            res[route] = (float(loss), grads, K2.lstm_seq2.launches)
+    if (res["default"][2], res["fused2"][2]) != (0, 1):
+        raise AssertionError(f"seq2 launches {res['default'][2]} (default), {res['fused2'][2]} (FUSED2): expected 0, 1")
+    loss_rel = abs(res["fused2"][0] - res["default"][0]) / abs(res["default"][0])
+    grad_rel = {}
+    for block in params:
+        pairs = zip(tree_leaves(res["fused2"][1][block]), tree_leaves(res["default"][1][block]))
+        grad_rel[block] = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
+    if loss_rel > ROUTE_TOL or max(grad_rel.values()) > ROUTE_TOL:
+        raise AssertionError(f"FUSED2 vs default route: loss {loss_rel}, grads {grad_rel} outside {ROUTE_TOL}")
+    return {"loss_default": res["default"][0], "loss_fused2": res["fused2"][0],
+            "loss_rel_err": loss_rel, "grad_rel_err_by_block": grad_rel, "tol": ROUTE_TOL}
+
+
+# --------------------------------------------------------------------------
+# phase 8: the train CLI at the reference width, both routes
+# --------------------------------------------------------------------------
+
+def loss_emas(ckpt: str):
+    with open(os.path.join(ckpt, "save", "logFile.txt")) as f:
+        return [float(ln.split()[2]) for ln in f if ln.startswith("training loss:")]
+
+
+def time_train_steps(K2, dev, tmp):
+    """Train-step time per route at the reference width (CUDA events): one
+    ``train_step_indexed`` and, per step, ``train_steps_scan`` of 10; each
+    route's step device time by kernel from torch.profiler."""
+    from novel_vqa_torch.data.vqa import VQAData
+    from novel_vqa_torch.models.vqa import arch1
+
+    data = VQAData(*(os.path.join(tmp, n) for n in ("data_prepro.h5", "data_img.h5", "data_prepro.json")))
+    store = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in data.split_store("train").items()}
+    cfg = ref_cfg()
+    params = arch1.init_params(cfg, torch.Generator().manual_seed(SEED + 4), device=dev)
+    tx = arch1.make_optimizer()
+    opt_state = tx.init(params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    qinds = torch.randint(0, N_TRAIN, (BATCH,), generator=gen, device=dev)
+    out = {}
+    for route in ("default", "fused2"):
+        with fused2_route(route == "fused2"):
+            def step():
+                arch1.train_step_indexed(cfg, tx, params, opt_state, store, qinds, gen)
+
+            out[f"{route}_step_ms"] = time_ms(step, reps=10, warmup=2)
+            out[f"{route}_scan10_ms_per_step"] = time_ms(
+                lambda: arch1.train_steps_scan(cfg, tx, params, opt_state, store, 10, BATCH, gen),
+                reps=3, warmup=1) / 10
+            out[f"{route}_step_profile"] = profile(step, top=12)
+            # the multi-step loop never waits for the card: any synchronising
+            # call inside it raises here
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                arch1.train_steps_scan(cfg, tx, params, opt_state, store, 10, BATCH, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            out[f"{route}_scan10_sync_free"] = True
+    return out
+
+
+def run_train_slice(K, K2, dev):
+    from novel_vqa_torch.train import eval_vqa_arch1, train_vqa_arch1
+
+    n_val_batches = -(-N_VAL // BATCH)
+    out = {"iters": TRAIN_ITERS, "runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_split(tmp, np.random.RandomState(SEED + 3),
+                    {"train": N_TRAIN, "val": N_VAL, "test": N_TEST_TRAIN})
+        out["setup_s"] = time.perf_counter() - t0
+        for route in ("default", "fused2"):
+            for spd in (1, 10):
+                ckpt = os.path.join(tmp, f"{route}_{spd}")
+                argv = data_argv(tmp) + [
+                    "--checkpoint_path", ckpt + "/", "--max_iters", str(TRAIN_ITERS),
+                    "--steps_per_dispatch", str(spd), "--log_every", "10", "--device", dev.type]
+                with fused2_route(route == "fused2"):
+                    K.lstm_seq.launches = K.lstm_step.launches = K2.lstm_seq2.launches = 0
+                    t0 = time.perf_counter()
+                    train_vqa_arch1.main(argv)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches,
+                                "lstm_seq2": K2.lstm_seq2.launches}
+                # one validation (iteration 0) through the seq kernel, and
+                # under FUSED2 one seq2 launch per training iteration
+                expected = {"lstm_seq": L * n_val_batches, "lstm_step": 0,
+                            "lstm_seq2": TRAIN_ITERS if route == "fused2" else 0}
+                if launches != expected:
+                    raise AssertionError(f"train {route} spd={spd}: launches {launches}, expected {expected}")
+                emas = loss_emas(ckpt)
+                if len(emas) != TRAIN_ITERS // 10 or not all(np.isfinite(emas)):
+                    raise AssertionError(f"train {route} spd={spd}: loss EMAs {emas}")
+                out["runs"][f"{route}_spd{spd}"] = {"wall_s": wall, "launches": launches, "loss_ema": emas}
+
+        res = os.path.join(tmp, "result")
+        K.lstm_seq.launches = 0
+        eval_vqa_arch1.main(data_argv(tmp) + ["--model_path", os.path.join(tmp, "fused2_1", "lstm.h5"),
+                                              "--out_path", res, "--device", dev.type])
+        torch.cuda.synchronize()
+        files = sorted(os.listdir(res))
+        for name in files:
+            with open(os.path.join(res, name)) as f:
+                if len(json.load(f)) != N_TEST_TRAIN:
+                    raise AssertionError(f"{name}: wrong number of entries")
+        if len(files) != 2 or K.lstm_seq.launches != L * -(-N_TEST_TRAIN // BATCH):
+            raise AssertionError(f"eval of the trained lstm.h5: files {files}, {K.lstm_seq.launches} seq launches")
+        out["eval_trained"] = {"files": files, "lstm_seq_launches": K.lstm_seq.launches}
+        out.update(time_train_steps(K2, dev, tmp))
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seq2-mutants", action="store_true",
+                        help="only show that the seq2 check rejects kernels without its bf16 roundings")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 1
     from novel_vqa_torch.kernels import build
     from novel_vqa_torch.kernels import lstm as K
+    from novel_vqa_torch.kernels import lstm2 as K2
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -405,34 +788,54 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    _, log = build.build("lstm.cu")  # the port's one source
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    # one nvcc per source, all started together
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        logs = {src: fut.result()[1] for src, fut in
+                [(src, pool.submit(build.build, src)) for src in SOURCES]}
+    ptxas = {src: [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+             for src, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
+    if opts.seq2_mutants:
+        out = run_seq2_mutants(K2, dev)
+        emit({"phase": "seq2_mutants", **out})
+        print(nvidia_smi(), flush=True)
+        passed = not any(r["failed"] for r in out["kernel"].values())
+        rejected = all(m["rejected"] for m in out["mutants"].values())
+        emit({"seq2_check": {"kernel_passes": passed, "every_mutant_rejected": rejected}})
+        return 0 if passed and rejected else 1
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    # the main path's shapes, then odd ones: ragged row and unit tiles, and
-    # (H=600) more hidden units than threads in a seq-kernel block
+    # the main paths' shapes, then odd ones: ragged row and unit tiles, and
+    # (H=600) more hidden units than threads in a block
     odd = ((13, 24, 40), (13, 24, 600))
     seq_rows = [seq_case(K, BATCH, In, H, gen, dev, timed=True) for In in (E, H)]
     seq_rows += [seq_case(K, *shape, gen, dev, timed=False) for shape in odd]
     step_rows = [step_case(K, BATCH, In, H, gen, dev, timed=True) for In in (E, H)]
     step_rows += [step_case(K, *shape, gen, dev, timed=False) for shape in odd]
-    for row in seq_rows + step_rows:
+    seq2_rows = [seq2_case(K2, BATCH, E, H, 0.5, gen, dev, timed=True)]
+    seq2_rows += [seq2_case(K2, *shape, 0.7, gen, dev, timed=False) for shape in odd]
+    for row in seq_rows + step_rows + seq2_rows:
         emit({"phase": "kernel_check", **row})
+    emit({"phase": "autograd_refusal", **run_autograd_refusal(K, K2, dev)})
 
     slice_out = run_slice(K, dev)
     emit({"phase": "slice", **slice_out})
     step_out = run_step_route(K, dev, gen)
     emit({"phase": "step_route", **step_out})
+    emit({"phase": "route_agreement", **run_route_agreement(K2, dev)})
+    train_out = run_train_slice(K, K2, dev)
+    emit({"phase": "train_slice", **train_out})
 
-    def entry(name, rows, launches, replaces):
+    def entry(name, rows, launches, replaces, source=SOURCE):
         timed = [r for r in rows if "kernel_ms" in r]
         return {
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            # one launch at each main-path shape (In = 200 and 512), summed
+            # one launch at each main-path shape (for seq and step, In = 200
+            # and 512), summed
             "ms": sum(r["kernel_ms"] for r in timed),
             "plain_ms": sum(r["plain_ms"] for r in timed),
             "bound_ms": sum(r["bound_ms"] for r in timed),
@@ -445,7 +848,10 @@ def main() -> int:
     kernels = [
         entry("lstm_seq", seq_rows, slice_out["launches"]["lstm_seq"], SEQ_REPLACES),
         entry("lstm_step", step_rows, step_out["launches"]["lstm_step"], STEP_REPLACES),
+        entry("lstm_seq2", seq2_rows, train_out["runs"]["fused2_spd1"]["launches"]["lstm_seq2"],
+              SEQ2_REPLACES, SEQ2_SOURCE),
     ]
+    kernels[2]["replay_err_ratio"] = max(max(r["replay_err_ratio"].values()) for r in seq2_rows)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})

@@ -1,8 +1,14 @@
-"""Torch flat-vector (``getParameters()``) interop, numpy only.
+"""Checkpoint formats: Torch flat-vector (``getParameters()``) interop,
+native npz files and AE transfer dumps.
 
-Copy of the flat-vector half of ``novel_vqa_tpu.core.checkpoint``, so the
-same ``lstm.h5`` ({encoder_w_q, embedding_w_q, multimodal_w}, as saved by
-002_train_vqa_arch1/002_train_baseline.lua:419-420) loads into both packages.
+Copy of ``novel_vqa_tpu.core.checkpoint`` without its orbax backend, so the
+same files load into both packages:
+  * ``lstm.h5`` ({encoder_w_q, embedding_w_q, multimodal_w}, as saved by
+    002_train_vqa_arch1/002_train_baseline.lua:419-420);
+  * npz files keyed by tree path (``lstm.npz``, ``train_state.npz``),
+    NamedTuple fields by name, so optimizer states cross as well;
+  * converted-AE transfer h5 files ({lookup^T, encoder, [multimodal]},
+    002_convert_text_model_arch1_as_h5.lua:39-42), read only.
 The h5 files go through the port's own reader and writer (``core/h5.py``).
 
 Layout conventions:
@@ -15,11 +21,75 @@ Layout conventions:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+import json
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from novel_vqa_torch.core.h5 import H5Reader, write_h5
+
+
+# ---------------------------------------------------------------------------
+# trees <-> npz
+# ---------------------------------------------------------------------------
+
+def _flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(_flatten_tree(tree[k], f"{prefix}{k}/"))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        # NamedTuple (optimizer states): key by field name
+        for name, v in zip(tree._fields, tree):
+            out.update(_flatten_tree(v, f"{prefix}{name}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten_tree(v, f"{prefix}{i}/"))
+    elif isinstance(tree, torch.Tensor):
+        out[prefix.rstrip("/")] = tree.detach().cpu().numpy()
+    else:
+        out[prefix.rstrip("/")] = np.asarray(tree)
+    return out
+
+
+def save_npz(path: str, tree: Any, meta: Dict[str, Any] | None = None) -> None:
+    flat = _flatten_tree(tree)
+    if meta is not None:
+        flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **flat)
+
+
+def load_npz(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """Returns (flat dict keyed by path, meta)."""
+    with np.load(path) as f:
+        data = dict(f)
+    meta = {}
+    if "__meta__" in data:
+        meta = json.loads(bytes(data.pop("__meta__").tobytes()).decode())
+    return data, meta
+
+
+def unflatten_like(template: Any, flat: Dict[str, np.ndarray], prefix: str = "") -> Any:
+    """The tree of ``template``'s structure with its leaves read from
+    ``flat`` (numpy arrays)."""
+    if isinstance(template, dict):
+        return {k: unflatten_like(template[k], flat, f"{prefix}{k}/") for k in template}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(
+            unflatten_like(v, flat, f"{prefix}{name}/")
+            for name, v in zip(template._fields, template)
+        ))
+    if isinstance(template, (list, tuple)):
+        return type(template)(
+            unflatten_like(v, flat, f"{prefix}{i}/") for i, v in enumerate(template)
+        )
+    return flat[prefix.rstrip("/")]
+
+
+# ---------------------------------------------------------------------------
+# flat-vector (Torch getParameters) interop
+# ---------------------------------------------------------------------------
 
 
 def _linear_to_flat(w_in_out: np.ndarray, b: np.ndarray) -> List[np.ndarray]:
@@ -116,3 +186,21 @@ def save_flat_h5(path: str, vectors: Dict[str, np.ndarray]) -> None:
 def load_flat_h5(path: str) -> Dict[str, np.ndarray]:
     with H5Reader(path) as f:
         return {k: f[k] for k in f.keys()}
+
+
+def ae_transfer_from_h5(
+    path: str, input_size: int, rnn_size: int, num_layers: int
+) -> Dict[str, Any]:
+    """A converted-AE transfer h5 -> {lookup (vocab+1, E), encoder layers,
+    [multimodal flat vector]}; the file stores ``lookup`` transposed, as the
+    reference converter's ``lookup:t()``."""
+    with H5Reader(path) as f:
+        out: Dict[str, Any] = {
+            "lookup": f["lookup"].T.copy(),
+            "encoder": lstm_params_from_flat(
+                f["encoder"], input_size, rnn_size, num_layers
+            ),
+        }
+        if "multimodal" in f:
+            out["multimodal"] = f["multimodal"]
+    return out

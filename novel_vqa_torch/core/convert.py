@@ -14,14 +14,7 @@ import numpy as np
 import torch
 
 from novel_vqa_torch.core.device import resolve_device
-
-
-def _tree_map(fn, tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
+from novel_vqa_torch.core.tree import tree_map
 
 
 def _to_tensor(device):
@@ -36,22 +29,22 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def arch1_params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
     """JAX arch1 params as numpy arrays -> the port's dict of tensors."""
-    return _tree_map(_to_tensor(device), tree)
+    return tree_map(_to_tensor(device), tree)
 
 
 def arch1_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """Inverse of :func:`arch1_params_from_numpy`."""
-    return _tree_map(_to_numpy, params)
+    return tree_map(_to_numpy, params)
 
 
 def lstm_params_from_numpy(
     layers: Sequence[Dict[str, np.ndarray]], device
 ) -> List[Dict[str, torch.Tensor]]:
     """A list of JAX LSTM layer dicts ({wx, bx, wh, bh}) -> tensors."""
-    return _tree_map(_to_tensor(device), list(layers))
+    return tree_map(_to_tensor(device), list(layers))
 
 
 def lstm_params_to_numpy(
     layers: Sequence[Dict[str, torch.Tensor]]
 ) -> List[Dict[str, np.ndarray]]:
-    return _tree_map(_to_numpy, list(layers))
+    return tree_map(_to_numpy, list(layers))

@@ -1,0 +1,53 @@
+"""Nested params and optimizer states (the port's pytrees), and gradients
+over them.
+
+Params are dicts of tensors with lists for LSTM layers, in the JAX
+package's layout; optimizer states are NamedTuples and tuples.  These
+helpers play the part of ``jax.tree_util`` and ``jax.value_and_grad`` for
+those structures, so the training code reads as the JAX package's does.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+import torch
+
+
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (same structure); dicts, lists, tuples and NamedTuples keep
+    their types."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    leaves: List[Any] = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
+def value_and_grad(fn: Callable) -> Callable:
+    """``jax.value_and_grad`` for a scalar ``fn(params, *args)``: returns
+    (value detached, grads in the structure of ``params``).  The caller's
+    tensors are not touched: the graph is built on detached aliases."""
+
+    def wrapped(params, *args) -> Tuple[torch.Tensor, Any]:
+        with torch.enable_grad():
+            live = tree_map(lambda p: p.detach().requires_grad_(), params)
+            value = fn(live, *args)
+            grads = torch.autograd.grad(value, tree_leaves(live))
+        it = iter(grads)
+        return value.detach(), tree_map(lambda _: next(it), params)
+
+    return wrapped

@@ -1,27 +1,23 @@
 // LSTM kernels for Hopper (sm_90a), fp32, built with nvcc into a shared
 // library with a plain C interface (see novel_vqa_torch/kernels/build.py).
 //
-// Both kernels compute the fused-gate LSTM cell of the JAX package
-// (gate order i, f, o, g; weights stored (in, 4H); b = bx + bh):
+// Both kernels compute the fused-gate LSTM cell of the JAX package (the cell
+// and the gate products are in cell.cuh; b = bx + bh):
 //
-//     gates = x @ Wx + h @ Wh + b
-//     i, f, o = sigmoid(gates[0:H], [H:2H], [2H:3H]);  g = tanh(gates[3H:4H])
-//     c' = f * c + i * g;  h' = o * tanh(c')
+//     gates = x @ Wx + h @ Wh + b;  c', h' = cell(gates, c)
 //
-// A block owns a tile of R batch rows.  The rows' inputs are staged in
-// shared memory transposed, a[k * R + r], so one float4 load broadcasts four
-// rows of column k to the whole warp.  Each thread owns one hidden unit j
-// and accumulates its four gate columns (j, H+j, 2H+j, 3H+j) for all R rows
-// in registers (4 * R accumulators), reading one weight row slice per k
-// from global memory: neighbouring threads read neighbouring columns, so
-// the reads coalesce, and the weights stay hot in the 50 MB L2 cache.  The
-// cell update then runs in the epilogue, so the (N, 4H) gate matrix never
-// reaches device memory.  All arithmetic is fp32 FMA (no tensor cores, no
-// TF32), with expf/tanhf rather than the fast intrinsics, to stay within
-// 1e-5 of the plain PyTorch versions.
+// A block owns a tile of R batch rows, staged in shared memory transposed.
+// Each thread owns one hidden unit j and accumulates its four gate columns
+// (j, H+j, 2H+j, 3H+j) for all R rows in registers (4 * R accumulators),
+// reading one weight row slice per k from global memory; the weights stay
+// hot in the 50 MB L2 cache.  The cell update then runs in the epilogue, so
+// the (N, 4H) gate matrix never reaches device memory.  All arithmetic is
+// fp32 FMA (no tensor cores, no TF32).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cell.cuh"
 
 namespace {
 
@@ -29,54 +25,6 @@ constexpr int kSeqRows = 16;      // batch rows per block, seq kernel
 constexpr int kSeqThreads = 512;  // max threads (hidden units) per block
 constexpr int kStepRows = 8;      // batch rows per block, step kernel
 constexpr int kStepUnits = 128;   // hidden units per block, step kernel
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// The cell shared by both kernels: gate pre-activations -> (c', h').
-__device__ __forceinline__ void lstm_cell(float gi, float gf, float go,
-                                          float gg, float c, float* c_new,
-                                          float* h_new) {
-  const float i = sigmoidf_(gi);
-  const float f = sigmoidf_(gf);
-  const float o = sigmoidf_(go);
-  const float g = tanhf(gg);
-  const float cn = f * c + i * g;
-  *c_new = cn;
-  *h_new = o * tanhf(cn);
-}
-
-// acc[q][r] += sum_k a_s[k * R + r] * w[k * 4H + q * H + j]  for q = 0..3.
-template <int R>
-__device__ __forceinline__ void gate_products(float (&acc)[4][R],
-                                              const float* a_s, int K,
-                                              const float* __restrict__ w,
-                                              int H, int j) {
-  const size_t ld = 4 * (size_t)H;
-  const float* wj = w + j;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float* wk = wj + (size_t)k * ld;
-    const float w0 = __ldg(wk);
-    const float w1 = __ldg(wk + H);
-    const float w2 = __ldg(wk + 2 * H);
-    const float w3 = __ldg(wk + 3 * H);
-    const float4* a4 = reinterpret_cast<const float4*>(a_s + k * R);
-#pragma unroll
-    for (int v = 0; v < R / 4; ++v) {
-      const float4 a = a4[v];
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[0][4 * v + e] = fmaf(av[e], w0, acc[0][4 * v + e]);
-        acc[1][4 * v + e] = fmaf(av[e], w1, acc[1][4 * v + e]);
-        acc[2][4 * v + e] = fmaf(av[e], w2, acc[2][4 * v + e]);
-        acc[3][4 * v + e] = fmaf(av[e], w3, acc[3][4 * v + e]);
-      }
-    }
-  }
-}
 
 // dst[k * R + r] = src[(n0 + r) * K + k], zero for rows n0 + r >= N.
 template <int R>
@@ -140,12 +88,7 @@ __global__ void __launch_bounds__(kSeqThreads, 1)
 
     for (int j = threadIdx.x; j < H; j += blockDim.x) {
       float acc[4][R];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float bq = b[q * H + j];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[q][r] = bq;
-      }
+      init_bias<R>(acc, b, H, j);
       gate_products<R>(acc, x_s, In, wx, H, j);
       gate_products<R>(acc, h_cur, H, wh, H, j);
 #pragma unroll
@@ -214,12 +157,7 @@ __global__ void __launch_bounds__(kStepUnits)
   if (j >= H) return;
 
   float acc[4][R];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float bq = b[q * H + j];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[q][r] = bq;
-  }
+  init_bias<R>(acc, b, H, j);
   gate_products<R>(acc, x_s, In, wx, H, j);
   gate_products<R>(acc, h_s, H, wh, H, j);
 #pragma unroll
@@ -281,10 +219,6 @@ int nvqa_lstm_step_forward(const float* x, const float* h, const float* c,
   lstm_step_kernel<kStepRows><<<grid, kStepUnits, smem, (cudaStream_t)stream>>>(
       x, h, c, wx, wh, b, c_out, h_out, N, In, H);
   return (int)cudaGetLastError();
-}
-
-const char* nvqa_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

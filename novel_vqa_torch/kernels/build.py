@@ -2,10 +2,11 @@
 
 Each source compiles to a shared library with a plain C interface (no
 PyTorch headers, so the build takes seconds).  The library lands in
-``build/`` at the repository root, named by a hash of the source and the
-flags, so an edited source is rebuilt and a stale one never loaded.  The
-build happens at the first launch, never at import: importing the package
-needs neither nvcc nor a card.
+``build/`` at the repository root, named by a hash of the source, the
+headers beside it (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and a stale one never loaded.  The build happens at the first
+launch, never at import: importing the package needs neither nvcc nor a
+card.
 """
 
 from __future__ import annotations
@@ -27,6 +28,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+P, I = ctypes.c_void_p, ctypes.c_int
+# The C entry points and their argument types; each returns a cudaError_t
+# as an int, which nvqa_cuda_error_string (csrc/cell.cuh) names.
+ENTRY_POINTS = {
+    "nvqa_lstm_seq_forward": [P] * 8 + [I] * 4 + [P],
+    "nvqa_lstm_step_forward": [P] * 8 + [I] * 3 + [P],
+    "nvqa_lstm_seq2_forward": [P] * 15 + [I] * 4 + [P],
+}
 
 
 def _nvcc() -> str:
@@ -46,8 +55,9 @@ def build(source: str) -> Tuple[Path, str]:
     built).  The library is written under a temporary name and renamed, so
     processes building at once never load a half-written file."""
     src = CSRC / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{src.stem}-{digest}.so"
     if lib.exists():
@@ -72,8 +82,20 @@ def build(source: str) -> Tuple[Path, str]:
     return lib, proc.stdout + proc.stderr
 
 
+def load(path) -> ctypes.CDLL:
+    """Load a built library and declare the entry points it exports."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in ENTRY_POINTS.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, I
+    lib.nvqa_cuda_error_string.argtypes = [I]
+    lib.nvqa_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def library(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built on first use."""
     path, _ = build(source)
-    return ctypes.CDLL(str(path))
+    return load(path)

@@ -9,14 +9,18 @@ or raises: there is no fallback.  Each wrapper counts its launches in a
 plain integer attribute (``lstm_seq.launches``), so a run can show that its
 path went through the kernel.
 
+The kernels compute forwards only: their outputs carry no ``grad_fn``.  So
+on a CUDA tensor each wrapper raises when grad mode is on and an input
+requires grad, rather than hand a training graph outputs that would cut it
+(:func:`refuse_grad`).  Training reaches these kernels only through an
+autograd Function whose backward is written out (``ops/lstm2.py``).
+
 Both take ``b = bx + bh`` (the Pallas kernels' convention) and weights
 stored (in, 4H), gate order i, f, o, g.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import torch
@@ -26,12 +30,19 @@ from novel_vqa_torch.kernels.build import library
 SOURCE = "lstm.cu"
 
 
-def _cell(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    H = c.shape[-1]
-    i = torch.sigmoid(gates[:, 0 * H : 1 * H])
-    f = torch.sigmoid(gates[:, 1 * H : 2 * H])
-    o = torch.sigmoid(gates[:, 2 * H : 3 * H])
-    g = torch.tanh(gates[:, 3 * H : 4 * H])
+def gate_activations(gates: torch.Tensor):
+    """Gate pre-activations (..., 4H) -> the activated i, f, o, g (..., H)."""
+    H = gates.shape[-1] // 4
+    i = torch.sigmoid(gates[..., 0 * H : 1 * H])
+    f = torch.sigmoid(gates[..., 1 * H : 2 * H])
+    o = torch.sigmoid(gates[..., 2 * H : 3 * H])
+    g = torch.tanh(gates[..., 3 * H : 4 * H])
+    return i, f, o, g
+
+
+def cell(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused-gate cell: gate pre-activations (N, 4H) and c -> (c', h')."""
+    i, f, o, g = gate_activations(gates)
     c_new = f * c + i * g
     return c_new, o * torch.tanh(c_new)
 
@@ -39,7 +50,7 @@ def _cell(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
 def lstm_step_plain(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
     """One LSTM cell step (ops/lstm.py:106-122 of the JAX package):
     returns (c', h')."""
-    return _cell(x @ wx + h @ wh + b, c)
+    return cell(x @ wx + h @ wh + b, c)
 
 
 def lstm_seq_plain(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -53,7 +64,7 @@ def lstm_seq_plain(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor, tor
     h = xs.new_zeros(N, H)
     hs = []
     for t in range(T):
-        c_new, h_new = _cell(xs[t] @ wx + h @ wh + b, c)
+        c_new, h_new = cell(xs[t] @ wx + h @ wh + b, c)
         m = mask[t][:, None] > 0
         c = torch.where(m, c_new, c)
         h = torch.where(m, h_new, h)
@@ -61,31 +72,32 @@ def lstm_seq_plain(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor, tor
     return c, h, torch.stack(hs)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = library(SOURCE)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nvqa_lstm_seq_forward.argtypes = [p] * 8 + [i] * 4 + [p]
-    lib.nvqa_lstm_seq_forward.restype = i
-    lib.nvqa_lstm_step_forward.argtypes = [p] * 8 + [i] * 3 + [p]
-    lib.nvqa_lstm_step_forward.restype = i
-    lib.nvqa_cuda_error_string.argtypes = [i]
-    lib.nvqa_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
+def check(name: str, t: torch.Tensor, shape, device: torch.device,
+          dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}; the CUDA LSTM kernels take float32 only")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}; this CUDA kernel takes {dtype} here")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _raise_on(lib, err: int, what: str) -> None:
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if a kernel's outputs would enter an autograd graph: the CUDA
+    kernels write through raw pointers, so their outputs carry no
+    ``grad_fn`` and every gradient behind them would be lost silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad under grad mode, but the CUDA "
+            "kernel computes a forward only and its outputs would cut the "
+            "graph; call it under torch.no_grad()/inference_mode(), or train "
+            "through a route with a backward (ops/lstm.py)"
+        )
+
+
+def raise_on(lib, err: int, what: str) -> None:
     """Raise on a failed launch; a shape whose staged rows need more shared
     memory than the card offers fails here, at ``cudaFuncSetAttribute``."""
     if err != 0:
@@ -99,6 +111,7 @@ def lstm_seq(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
         return lstm_seq_plain(xs, mask, wx, wh, b)
     if xs.device.type != "cuda":
         raise ValueError(f"lstm_seq: unsupported device {xs.device}")
+    refuse_grad("lstm_seq", xs, mask, wx, wh, b)
     T, N, In = xs.shape
     H = wh.shape[0]
     if T < 1 or N < 1:
@@ -108,8 +121,8 @@ def lstm_seq(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
         ("xs", xs, (T, N, In)), ("mask", mask, (T, N)), ("wx", wx, (In, 4 * H)),
         ("wh", wh, (H, 4 * H)), ("b", b, (4 * H,)),
     ):
-        _check(name, t, shape, dev)
-    lib = _lib()
+        check(name, t, shape, dev)
+    lib = library(SOURCE)
     c = torch.empty(N, H, device=dev)
     h = torch.empty(N, H, device=dev)
     hs = torch.empty(T, N, H, device=dev)
@@ -119,7 +132,7 @@ def lstm_seq(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
             b.data_ptr(), c.data_ptr(), h.data_ptr(), hs.data_ptr(),
             T, N, In, H, torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(lib, err, f"lstm_seq launch (T={T}, N={N}, In={In}, H={H})")
+    raise_on(lib, err, f"lstm_seq launch (T={T}, N={N}, In={In}, H={H})")
     lstm_seq.launches += 1
     return c, h, hs
 
@@ -134,6 +147,7 @@ def lstm_step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
         return lstm_step_plain(x, h, c, wx, wh, b)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_step: unsupported device {x.device}")
+    refuse_grad("lstm_step", x, h, c, wx, wh, b)
     N, In = x.shape
     H = wh.shape[0]
     if N < 1:
@@ -143,8 +157,8 @@ def lstm_step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
         ("x", x, (N, In)), ("h", h, (N, H)), ("c", c, (N, H)),
         ("wx", wx, (In, 4 * H)), ("wh", wh, (H, 4 * H)), ("b", b, (4 * H,)),
     ):
-        _check(name, t, shape, dev)
-    lib = _lib()
+        check(name, t, shape, dev)
+    lib = library(SOURCE)
     c_out = torch.empty(N, H, device=dev)
     h_out = torch.empty(N, H, device=dev)
     with torch.cuda.device(dev):
@@ -153,7 +167,7 @@ def lstm_step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
             wh.data_ptr(), b.data_ptr(), c_out.data_ptr(), h_out.data_ptr(),
             N, In, H, torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(lib, err, f"lstm_step launch (N={N}, In={In}, H={H})")
+    raise_on(lib, err, f"lstm_step launch (N={N}, In={In}, H={H})")
     lstm_step.launches += 1
     return c_out, h_out
 

@@ -1,31 +1,37 @@
-"""Arch1: late-fusion LSTM VQA baseline, deterministic forward.
+"""Arch1: late-fusion LSTM VQA baseline, forward and training step.
 
 Port of ``novel_vqa_tpu.models.vqa.arch1`` after
 002_train_vqa_arch1/002_train_baseline.lua:
-  * word embedding = row gather + bias -> tanh (:141-144; the dropout
-    between them is off in eval);
+  * word embedding = row gather + bias -> Dropout(0.5) -> tanh (:141-144);
   * question encoder = ``rnn_layer``-layer LSTM over right-aligned tokens,
-    masked (:147, misc/LSTM.lua);
+    masked, with inter-layer dropout 0.5 (:147, misc/LSTM.lua);
   * question vector = the packed final state [c1, h1, ..., cL, hL] (:152);
-  * head = AxB (or AskipB for the wp variant) -> Linear(common,
-    num_output) (:151-154).
+  * head = AxB (or AskipB for the wp variant) -> Dropout(0.5) ->
+    Linear(common, num_output) (:151-154);
+  * loss = CrossEntropy over 1-indexed answers (:157); one step = forward,
+    backward, [grad scale] -> clamp(+-10) -> rmsprop with per-iteration lr
+    decay (:272-335, :408-410).
 
-Only ``deterministic=True`` is ported; training mode comes with the
-training slice.
+The dropout masks of training mode come from a ``torch.Generator`` on the
+batch's device (``generator=``) where the JAX package splits an rng key.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from novel_vqa_torch.core.device import resolve_device
+from novel_vqa_torch.core.tree import value_and_grad
 from novel_vqa_torch.models.vqa.eval_paths import build_eval_fns
+from novel_vqa_torch.ops import optim
+from novel_vqa_torch.ops.dropout import dropout
 from novel_vqa_torch.ops.embedding import embedding_lookup
 from novel_vqa_torch.ops.fusion import askipb_apply, axb_apply
 from novel_vqa_torch.ops.losses import cross_entropy
 from novel_vqa_torch.ops.lstm import lstm_encode, lstm_layer_init, pack_state
+from novel_vqa_torch.parallel.dp import gather_batch, vqa_scan_steps
 
 
 class Arch1Config(NamedTuple):
@@ -36,7 +42,12 @@ class Arch1Config(NamedTuple):
     nhimage: int = 4096  # -nhimage (:33)
     common_embedding_size: int = 1024  # -common_embedding_size (:37)
     num_output: int = 1000  # -num_output (:38)
+    dropout: float = 0.5
     fusion: str = "axb"  # "axb" | "askipb" (wp variant)
+    remat: bool = False  # recompute the LSTM step in the backward: raises
+    # "bfloat16" mixed precision raises until its slice; float32 as the
+    # reference
+    compute_dtype: str = "float32"
 
 
 def init_params(
@@ -82,13 +93,15 @@ def apply(
     tokens: torch.Tensor,  # (N, D) right-aligned int tokens, 0 = pad
     image: torch.Tensor,  # (N, nhimage) float32 (already L2-normalized)
     *,
+    generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
 ) -> torch.Tensor:
-    """Forward pass -> (N, num_output) answer scores."""
-    if not deterministic:
+    """Forward pass -> (N, num_output) answer scores.  Training mode
+    (``deterministic=False``) draws its dropout masks from ``generator``."""
+    if cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            "arch1.apply(deterministic=False): training mode (dropout, the "
-            "backward) is ported with the training slice"
+            f"arch1 compute_dtype={cfg.compute_dtype!r}: only float32 is ported "
+            "(bfloat16 mixed precision is ROADMAP A5, compute_dtype)"
         )
     if cfg.fusion == "axb":
         fuse = axb_apply
@@ -97,15 +110,81 @@ def apply(
     else:
         raise ValueError(f"cfg.fusion={cfg.fusion!r}: must be 'axb' or 'askipb'")
 
-    emb = torch.tanh(
-        embedding_lookup(params["embedding"]["w"], tokens, params["embedding"]["b"])
-    )
+    # embedding: tanh(dropout(W[t] + b)), the Linear->Dropout->Tanh order
+    emb = embedding_lookup(params["embedding"]["w"], tokens, params["embedding"]["b"])
+    emb = torch.tanh(dropout(emb, cfg.dropout, generator, deterministic))
     xs = emb.transpose(0, 1)  # (D, N, E) time-major
     mask = (tokens != 0).to(xs.dtype).transpose(0, 1)  # (D, N)
-    c, h = lstm_encode(params["encoder"], xs, mask)
+    c, h = lstm_encode(
+        params["encoder"], xs, mask, dropout_rate=cfg.dropout,
+        generator=generator, deterministic=deterministic, remat=cfg.remat,
+    )
     tv_q = pack_state(c, h)  # (N, 2*rnn*layers)
-    fused = fuse(params["fusion"], tv_q, image)
+    fused = fuse(
+        params["fusion"], tv_q, image, dropout_rate=cfg.dropout,
+        generator=generator, deterministic=deterministic,
+    )
+    fused = dropout(fused, cfg.dropout, generator, deterministic)
     return torch.matmul(fused, params["classifier"]["w"]) + params["classifier"]["b"]
+
+
+def loss_fn(params, cfg, tokens, image, labels, generator) -> torch.Tensor:
+    scores = apply(params, cfg, tokens, image, generator=generator, deterministic=False)
+    return cross_entropy(scores, labels)
+
+
+def make_optimizer(
+    learning_rate: float = 3e-4,
+    decay_factor: float = 0.99997592083,  # :78
+    grad_clamp: float = 10.0,  # :329
+    alpha: float = 0.99,
+    epsilon: float = 1e-8,
+    grad_scales=None,
+) -> optim.GradientTransformation:
+    """[optional grad scaling] -> clamp(+-10) -> reference rmsprop with
+    per-step multiplicative decay (:408-410).  ``grad_scales`` is a tree of
+    factors matching the params (the wp variant's ``-lr_scale`` on the
+    encoder/embedding blocks, 003_train_ae_based_wp.lua:344), applied
+    before the clamp as in the reference."""
+    chain = []
+    if grad_scales is not None:
+        chain.append(optim.scale_by_tree(grad_scales))
+    chain += [
+        optim.clamp(grad_clamp),
+        optim.rmsprop(
+            optim.exponential_decay_schedule(learning_rate, decay_factor),
+            alpha=alpha,
+            epsilon=epsilon,
+        ),
+    ]
+    return optim.chain(*chain)
+
+
+def train_step(cfg, tx, params, opt_state, tokens, image, labels, generator):
+    """One forward/backward/update step (replaces JdJ + optim.rmsprop,
+    002_train_baseline.lua:272-335,408): returns (params, opt_state, loss),
+    the loss a 0-d tensor left on the device."""
+    loss, grads = value_and_grad(loss_fn)(params, cfg, tokens, image, labels, generator)
+    updates, opt_state = tx.update(grads, opt_state, params)
+    return optim.apply_updates(params, updates), opt_state, loss
+
+
+def train_step_indexed(cfg, tx, params, opt_state, data, qinds, generator):
+    """:func:`train_step` on rows ``qinds`` of a device-resident store
+    (tokens (N, D), image (M, F), img_pos (N,), answers (N,)): only the
+    (B,) index vector crosses from the host."""
+    tokens, image, labels = gather_batch(data, qinds)
+    return train_step(cfg, tx, params, opt_state, tokens, image, labels, generator)
+
+
+def train_steps_scan(cfg, tx, params, opt_state, data, n_steps: int, batch_size: int,
+                     generator):
+    """``n_steps`` iterations with on-device batch sampling and no host
+    sync (``parallel/dp.vqa_scan_steps``): returns (params, opt_state,
+    losses (n_steps,))."""
+    return vqa_scan_steps(
+        loss_fn, cfg, tx, params, opt_state, data, generator, n_steps, batch_size
+    )
 
 
 @torch.inference_mode()

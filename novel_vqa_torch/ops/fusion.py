@@ -1,43 +1,78 @@
-"""Multimodal fusion blocks AxB, AskipB, A_B, forward only.
+"""Multimodal fusion blocks AxB, AskipB, A_B.
 
 Port of ``novel_vqa_tpu.ops.fusion`` (002_train_vqa_arch1/misc/netdef.lua):
 
-    AxB    (netdef.lua:6-14):  tanh(Wq·q) * tanh(Wi·i)
+    AxB    (netdef.lua:6-14):  tanh(Wq·drop(q)) * tanh(Wi·drop(i))
     AskipB (netdef.lua:16-25): qc + qc*ic
     A_B    (netdef.lua:27-35): concat(qc, ic)
 
 Weights are stored (in_features, out_features).  The two projections are
-plain ``torch.matmul`` calls, as the JAX package leaves them to XLA.  The
-dropout of training mode comes with the training slice.
+plain ``torch.matmul`` calls, as the JAX package leaves them to XLA.  In
+training mode (``deterministic=False`` with a generator) both projection
+inputs go through dropout.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from novel_vqa_torch.ops.dropout import dropout
 
 AxBParams = Dict[str, torch.Tensor]  # {"wq", "bq", "wi", "bi"}
 
 
 def _projections(
-    params: AxBParams, q: torch.Tensor, i: torch.Tensor
+    params: AxBParams,
+    q: torch.Tensor,
+    i: torch.Tensor,
+    rate: float,
+    generator: Optional[torch.Generator],
+    deterministic: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if generator is not None and not deterministic and rate > 0.0:
+        q = dropout(q, rate, generator, deterministic=False)
+        i = dropout(i, rate, generator, deterministic=False)
     qc = torch.tanh(torch.matmul(q, params["wq"]) + params["bq"])
     ic = torch.tanh(torch.matmul(i, params["wi"]) + params["bi"])
     return qc, ic
 
 
-def axb_apply(params: AxBParams, q: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    qc, ic = _projections(params, q, i)
+def axb_apply(
+    params: AxBParams,
+    q: torch.Tensor,
+    i: torch.Tensor,
+    *,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+) -> torch.Tensor:
+    qc, ic = _projections(params, q, i, dropout_rate, generator, deterministic)
     return qc * ic
 
 
-def askipb_apply(params: AxBParams, q: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    qc, ic = _projections(params, q, i)
+def askipb_apply(
+    params: AxBParams,
+    q: torch.Tensor,
+    i: torch.Tensor,
+    *,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+) -> torch.Tensor:
+    qc, ic = _projections(params, q, i, dropout_rate, generator, deterministic)
     return qc + qc * ic
 
 
-def a_b_apply(params: AxBParams, q: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    qc, ic = _projections(params, q, i)
+def a_b_apply(
+    params: AxBParams,
+    q: torch.Tensor,
+    i: torch.Tensor,
+    *,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+) -> torch.Tensor:
+    qc, ic = _projections(params, q, i, dropout_rate, generator, deterministic)
     return torch.cat([qc, ic], dim=-1)

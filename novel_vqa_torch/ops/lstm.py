@@ -1,7 +1,7 @@
 """Fused-gate LSTM: single step, multi-layer stack, masked time scan.
 
-Port of ``novel_vqa_tpu.ops.lstm`` for deterministic (eval) mode.  Reference
-math (002_train_vqa_arch1/misc/LSTM.lua:41-59):
+Port of ``novel_vqa_tpu.ops.lstm``.  Reference math
+(002_train_vqa_arch1/misc/LSTM.lua:41-59):
 
     gates = x @ Wx + bx + h @ Wh + bh
     i, f, o = sigmoid(gates[0:H]), sigmoid(gates[H:2H]), sigmoid(gates[2H:3H])
@@ -13,26 +13,37 @@ Layer params are dicts {wx (in, 4H), bx, wh (H, 4H), bh}; ``bx`` and ``bh``
 stay separate to keep the Torch flat-vector layout, and are summed where a
 kernel is called.
 
-Routing mirrors the JAX package, with the card in the TPU's place:
-  * a whole-sequence encode from a zero state (no ``init_state``, no
-    ``return_sequence``) runs one seq-kernel launch per layer, layer k+1 fed
-    layer k's per-step hidden states (``pallas_lstm_encode``);
-  * every other encode steps cell by cell through :func:`lstm_step`, whose
-    cell is the step kernel.
-The kernel wrappers (``kernels/lstm.py``) launch the CUDA kernels on CUDA
-tensors, take only float32 there, and run their plain versions on CPU
-tensors.  Training mode (dropout, the backward) comes with the training
-slice.
+Routing mirrors the JAX package (ops/lstm.py:367-467), with the card in
+the TPU's place:
+  * a deterministic whole-sequence encode from a zero state (no
+    ``init_state``, no ``return_sequence``) runs one seq-kernel launch per
+    layer, layer k+1 fed layer k's per-step hidden states
+    (``pallas_lstm_encode``);
+  * under ``NOVEL_VQA_FUSED2=1``, a training encode of exactly two layers
+    with ``rnn_size % 128 == 0`` and float32 CUDA inputs runs the seq2
+    kernel once (``ops/lstm2.fused2_encode_train``; bf16 storage, so its
+    results differ from the default route's in the last bf16 bits);
+  * every other encode steps cell by cell through :func:`lstm_step`: the
+    step kernel in eval, and in training the plain cell with autograd
+    (the JAX package's XLA cell, ops/lstm.py:76-122), with inter-layer
+    dropout.
+The kernel wrappers (``kernels/``) launch the CUDA kernels on CUDA tensors
+and run their plain versions on CPU tensors; their outputs carry no
+``grad_fn``, so a training forward reaches them only through
+``ops/lstm2.Fused2``, whose backward is written out.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.kernels import lstm as kernels
+from novel_vqa_torch.ops.dropout import dropout
+from novel_vqa_torch.ops.lstm2 import fused2_encode_train
 
 LSTMLayerParams = Dict[str, torch.Tensor]  # {"wx", "bx", "wh", "bh"}
 
@@ -63,9 +74,22 @@ def lstm_layer_init(
 
 
 def lstm_step(
-    params: LSTMLayerParams, x: torch.Tensor, c: torch.Tensor, h: torch.Tensor
+    params: LSTMLayerParams,
+    x: torch.Tensor,
+    c: torch.Tensor,
+    h: torch.Tensor,
+    training: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One LSTM step. x: (N, in); c, h: (N, H). Returns (c', h')."""
+    """One LSTM step. x: (N, in); c, h: (N, H). Returns (c', h').
+
+    ``training=False``: the step kernel.  ``training=True``: the plain cell
+    with autograd, its two products in ``torch.matmul``."""
+    if training:
+        gates = (
+            torch.matmul(x, params["wx"]) + torch.matmul(h, params["wh"])
+            + params["bx"] + params["bh"]
+        )
+        return kernels.cell(gates, c)
     return kernels.lstm_step(
         x.contiguous(), h.contiguous(), c.contiguous(),
         params["wx"], params["wh"], params["bx"] + params["bh"],
@@ -76,14 +100,24 @@ def lstm_stack_step(
     params: Sequence[LSTMLayerParams],
     x: torch.Tensor,
     state: Tuple[torch.Tensor, torch.Tensor],  # (c, h) each (L, N, H)
+    *,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Multi-layer step: layer k+1 reads layer k's new h."""
+    """Multi-layer step: layer k+1 reads layer k's new h.  Inter-layer
+    dropout on the input of layers > 1 only (misc/LSTM.lua:36-38: none on
+    the first layer's input and none on the recurrent path)."""
     c, h = state
     new_c: List[torch.Tensor] = []
     new_h: List[torch.Tensor] = []
     inp = x
     for layer_idx, layer in enumerate(params):
-        c_l, h_l = lstm_step(layer, inp, c[layer_idx], h[layer_idx])
+        if layer_idx > 0:
+            inp = dropout(inp, dropout_rate, generator, deterministic)
+        c_l, h_l = lstm_step(
+            layer, inp, c[layer_idx], h[layer_idx], training=not deterministic
+        )
         new_c.append(c_l)
         new_h.append(h_l)
         inp = h_l
@@ -117,9 +151,13 @@ def lstm_encode(
     mask: torch.Tensor,  # (T, N) 1.0 where the step is active for that row
     *,
     init_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
     return_sequence: bool = False,
+    remat: bool = False,
 ):
-    """Masked dense scan over time, deterministic.
+    """Masked dense scan over time.
 
     ``state = where(mask_t, stack_step(state, x_t), state)``: rows keep their
     previous (initially zero) state on inactive steps, which reproduces the
@@ -127,8 +165,16 @@ def lstm_encode(
 
     Returns the final (c, h), each (L, N, H), or ``((c, h), (cs, hs))`` with
     the per-step states, each (T, L, N, H), when ``return_sequence``.
+    ``generator`` draws the dropout masks of training mode
+    (``deterministic=False``).
     """
-    if init_state is None and not return_sequence:
+    if remat:
+        raise NotImplementedError(
+            "lstm_encode(remat=True): recomputing the step in the backward is "
+            "not ported yet (ROADMAP A3, remat)"
+        )
+    whole_sequence = init_state is None and not return_sequence
+    if whole_sequence and deterministic:
         mask = mask.contiguous()
         cs, hs_final = [], []
         inp = xs.contiguous()
@@ -140,6 +186,15 @@ def lstm_encode(
             hs_final.append(h)
             inp = hs
         return torch.stack(cs), torch.stack(hs_final)
+    if (
+        whole_sequence
+        and os.environ.get("NOVEL_VQA_FUSED2", "0") == "1"
+        and len(params) == 2
+        and params[0]["wh"].shape[0] % 128 == 0
+        and xs.dtype == torch.float32
+        and xs.is_cuda
+    ):
+        return fused2_encode_train(params, xs, mask, dropout_rate, generator)
 
     seq_len, batch, _ = xs.shape
     if init_state is None:
@@ -149,7 +204,10 @@ def lstm_encode(
     c, h = init_state
     cs_seq, hs_seq = [], []
     for t in range(seq_len):
-        c_new, h_new = lstm_stack_step(params, xs[t], (c, h))
+        c_new, h_new = lstm_stack_step(
+            params, xs[t], (c, h), dropout_rate=dropout_rate,
+            generator=generator, deterministic=deterministic,
+        )
         m = mask[t][None, :, None] > 0
         c = torch.where(m, c_new, c)
         h = torch.where(m, h_new, h)

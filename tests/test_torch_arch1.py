@@ -66,8 +66,15 @@ def test_apply_rejects_training_mode_and_unknown_fusion():
     jcfg, tcfg = _cfgs("axb")
     tp = arch1_params_from_numpy(_params(jcfg), "cpu")
     tokens, image = (torch.from_numpy(a) for a in _batch(3, seed=2))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    # training mode draws dropout masks: without a generator it refuses
+    with pytest.raises(ValueError, match="generator"):
         tarch1.apply(tp, tcfg, tokens, image, deterministic=False)
+    # the training options not ported yet name their ROADMAP items
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tarch1.apply(tp, tcfg._replace(compute_dtype="bfloat16"), tokens, image)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tarch1.apply(tp, tcfg._replace(remat=True), tokens, image,
+                     generator=torch.Generator(), deterministic=False)
     with pytest.raises(ValueError, match="fusion"):
         tarch1.apply(tp, tcfg._replace(fusion="nope"), tokens, image)
 
