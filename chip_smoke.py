@@ -14,7 +14,14 @@ Phases, each printing one JSON line:
      plain version replayed from the kernel's own saved states, within
      1e-5 and one bf16 ulp, and run free within SEQ2_FREE_ATOL), with its
      time, its plain version's time, one PyTorch library call's time as a
-     yardstick, and its bound on an H100 SXM;
+     yardstick, and its bound on an H100 SXM.  The seq kernel also runs at
+     In=512 under the eval slice's right-aligned lengths, where whole row
+     tiles are inactive on the leading steps and it skips them, and under
+     left-aligned lengths with two steps no row takes, where tiles skip
+     interior steps that computed steps follow and their trailing steps;
+     its rows report the cluster launch (CTAs per cluster, rows per
+     cluster, CTAs, cudaOccupancyMaxActiveClusters) and the steps skipped
+     per tile;
   4. autograd: the forward-only kernel wrappers refuse an input that
      requires grad under grad mode, and launch nothing;
   5. slice: arch1 test-split inference through the eval CLI at the
@@ -22,7 +29,8 @@ Phases, each printing one JSON line:
      1024, 1000 answers, T=16, batch 500) on a synthetic split with random
      seeded weights, in both store modes; the seq kernel's launch count,
      identical result JSONs, and the scores of the first batches against a
-     forward through the plain LSTM;
+     forward through the plain LSTM; the ms per batch, the device time by
+     kernel and the device's idle share;
   6. step route: ``lstm_encode(return_sequence=True)`` at the same width,
      which steps cell by cell through the step kernel, against the plain
      step;
@@ -137,6 +145,12 @@ def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def ptxas_lines(log: str):
+    """What ptxas -v said of each kernel: entry, registers, spills."""
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
 def max_err(got, ref) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(got, ref))
 
@@ -158,24 +172,83 @@ def check_close(what: str, got, ref) -> None:
 def ragged_mask(T_, N, gen, dev):
     """Right-aligned activity with lengths 1..T_."""
     lengths = torch.randint(1, T_ + 1, (N,), generator=gen, device=dev)
+    return right_aligned(lengths, T_, dev)
+
+
+def right_aligned(lengths, T_, dev):
     return (torch.arange(T_, device=dev)[:, None] >= (T_ - lengths)[None, :]).float()
+
+
+def question_lengths(rs: np.random.RandomState, n: int) -> np.ndarray:
+    """Question lengths around the VQA mean of ~6 words, capped at T."""
+    return np.clip(rs.poisson(5.2, n) + 1, 1, T)
+
+
+def eval_mask(T_, N, dev):
+    """Right-aligned activity with the eval slice's question lengths."""
+    lengths = torch.from_numpy(question_lengths(np.random.RandomState(SEED + 5), N)).to(dev)
+    return right_aligned(lengths, T_, dev)
+
+
+def steps_skipped(mask, rows: int) -> dict:
+    """The steps the seq kernel skips: per tile of ``rows`` rows, those on
+    which no row of the tile is active."""
+    T_, N = mask.shape
+    tiles = -(-N // rows)
+    padded = mask.new_zeros(T_, tiles * rows)
+    padded[:, :N] = mask
+    skipped = (~(padded.view(T_, tiles, rows) > 0).any(dim=2)).sum(dim=0).tolist()
+    return {"rows_per_tile": rows, "tiles": tiles, "per_tile_mean": sum(skipped) / tiles,
+            "per_tile_min": min(skipped), "per_tile_max": max(skipped),
+            "share_of_tile_steps": sum(skipped) / (tiles * T_)}
+
+
+def gaps_mask(T_, N, gen, dev):
+    """Left-aligned activity with lengths 1..T_-4, and no row active on
+    steps 4 and 5: every tile skips those interior steps, computed steps
+    follow them, and it skips its trailing steps."""
+    lengths = torch.randint(1, T_ - 3, (N,), generator=gen, device=dev)
+    mask = (torch.arange(T_, device=dev)[:, None] < lengths[None, :]).float()
+    mask[4:6] = 0.0
+    return mask
 
 
 def uniform(gen, dev, *shape, scale=1.0):
     return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * scale
 
 
-def seq_case(K, N, In, H_, gen, dev, timed):
+# the seq kernel's cases: (N, In, H, mask, timed); the first two are the
+# eval path's layers, whose times the kernel line sums
+SEQ_CASES = ((BATCH, E, H, "uniform", True), (BATCH, H, H, "uniform", True),
+             (BATCH, H, H, "eval", True), (BATCH, H, H, "gaps", False),
+             (13, 24, 40, "uniform", False), (13, 24, 600, "uniform", False),
+             (13, 24, 600, "gaps", False))
+
+
+def seq_inputs(N, In, H_, mask_kind, gen, dev):
+    """The seq kernel's inputs; ``mask_kind`` "uniform" draws right-aligned
+    lengths 1..T uniformly, "eval" the eval slice's lengths, "gaps" the
+    left-aligned lengths of gaps_mask."""
     xs = uniform(gen, dev, T, N, In)
-    mask = ragged_mask(T, N, gen, dev)
+    mask = {"uniform": lambda: ragged_mask(T, N, gen, dev), "eval": lambda: eval_mask(T, N, dev),
+            "gaps": lambda: gaps_mask(T, N, gen, dev)}[mask_kind]()
     wx, wh = uniform(gen, dev, In, 4 * H_, scale=0.08), uniform(gen, dev, H_, 4 * H_, scale=0.08)
     b = uniform(gen, dev, 4 * H_, scale=0.16)
-    got = K.lstm_seq(xs, mask, wx, wh, b)
+    return xs, mask, wx, wh, b
+
+
+def seq_case(K, N, In, H_, mask_kind, timed, gen, dev):
+    xs, mask, wx, wh, b = args = seq_inputs(N, In, H_, mask_kind, gen, dev)
+    got = K.lstm_seq(*args)
     torch.cuda.synchronize()
-    ref = K.lstm_seq_plain(xs, mask, wx, wh, b)
-    check_close(f"lstm_seq N={N} In={In} H={H_}", got, ref)
-    row = {"kernel": "lstm_seq", "N": N, "T": T, "In": In, "H": H_, "max_abs_err": max_err(got, ref),
-           "errs": errs(("c", "h", "hs"), got, ref)}
+    ref = K.lstm_seq_plain(*args)
+    check_close(f"lstm_seq N={N} In={In} H={H_} mask={mask_kind}", got, ref)
+    launch = K.lstm_seq_launch_info(N, In, H_, dev)
+    launch["one_wave"] = launch["max_active_clusters"] >= launch["clusters"]
+    row = {"kernel": "lstm_seq", "N": N, "T": T, "In": In, "H": H_, "mask": mask_kind,
+           "main": timed and mask_kind == "uniform", "max_abs_err": max_err(got, ref),
+           "errs": errs(("c", "h", "hs"), got, ref), "launch": launch,
+           "steps_skipped": steps_skipped(mask, launch["rows_per_cluster"])}
     if timed:
         active = float(mask.sum())
         flops = 2.0 * (In + H_) * 4 * H_ * active
@@ -386,8 +459,7 @@ def write_split(tmp: str, rs: np.random.RandomState, sizes) -> None:
 
     ques_h5, img_h5 = {}, {}
     for split, n_q in sizes.items():
-        # question lengths around the VQA mean of ~6 words, capped at T
-        lengths = np.clip(rs.poisson(5.2, n_q) + 1, 1, T).astype(np.uint32)
+        lengths = question_lengths(rs, n_q).astype(np.uint32)
         ques = np.zeros((n_q, T), np.uint32)
         for i, n in enumerate(lengths):
             ques[i, :n] = rs.randint(1, V + 1, size=n)
@@ -535,6 +607,9 @@ def run_slice(K, dev):
         out["eval_questions_per_s_on_card"] = N_TEST / (split_ms / 1e3)
         out["batches"] = n_batches
         out["profile_top"] = profile(whole_split)
+        out["device_idle_share"] = 1 - out["profile_top"]["device_ms_total"] / split_ms
+        rows = K.lstm_seq_launch_info(BATCH, E, H, dev)["rows_per_cluster"]
+        out["seq_steps_skipped"] = steps_skipped((store["tokens"] != 0).float().t().contiguous(), rows)
     return out
 
 
@@ -638,7 +713,7 @@ def run_route_agreement(K2, dev):
     params = arch1.init_params(cfg, torch.Generator().manual_seed(SEED + 2), device=dev)
     rs = np.random.RandomState(SEED + 2)
     tokens = np.zeros((BATCH, T), np.int32)
-    for i, n in enumerate(np.clip(rs.poisson(5.2, BATCH) + 1, 1, T)):
+    for i, n in enumerate(question_lengths(rs, BATCH)):
         tokens[i, T - n:] = rs.randint(1, V + 1, size=n)  # right-aligned
     image = np.maximum(rs.randn(BATCH, F), 0).astype(np.float32)
     image /= np.linalg.norm(image, axis=1, keepdims=True)
@@ -792,9 +867,7 @@ def main(argv=None) -> int:
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
         logs = {src: fut.result()[1] for src, fut in
                 [(src, pool.submit(build.build, src)) for src in SOURCES]}
-    ptxas = {src: [ln.strip() for ln in log.splitlines()
-                   if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-             for src, log in logs.items()}
+    ptxas = {src: ptxas_lines(log) for src, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
     if opts.seq2_mutants:
@@ -810,8 +883,7 @@ def main(argv=None) -> int:
     # the main paths' shapes, then odd ones: ragged row and unit tiles, and
     # (H=600) more hidden units than threads in a block
     odd = ((13, 24, 40), (13, 24, 600))
-    seq_rows = [seq_case(K, BATCH, In, H, gen, dev, timed=True) for In in (E, H)]
-    seq_rows += [seq_case(K, *shape, gen, dev, timed=False) for shape in odd]
+    seq_rows = [seq_case(K, *case, gen, dev) for case in SEQ_CASES]
     step_rows = [step_case(K, BATCH, In, H, gen, dev, timed=True) for In in (E, H)]
     step_rows += [step_case(K, *shape, gen, dev, timed=False) for shape in odd]
     seq2_rows = [seq2_case(K2, BATCH, E, H, 0.5, gen, dev, timed=True)]
@@ -830,18 +902,20 @@ def main(argv=None) -> int:
 
     def entry(name, rows, launches, replaces, source=SOURCE):
         timed = [r for r in rows if "kernel_ms" in r]
+        main = [r for r in timed if r.get("main", True)]
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             # one launch at each main-path shape (for seq and step, In = 200
             # and 512), summed
-            "ms": sum(r["kernel_ms"] for r in timed),
-            "plain_ms": sum(r["plain_ms"] for r in timed),
-            "bound_ms": sum(r["bound_ms"] for r in timed),
-            "bound_by": timed[0]["bound_by"],
-            "library_ms": sum(r["library_ms"] for r in timed),
-            "shapes": [{k: r[k] for k in ("N", "In", "H", "kernel_ms", "plain_ms", "bound_ms", "library_ms")}
+            "ms": sum(r["kernel_ms"] for r in main),
+            "plain_ms": sum(r["plain_ms"] for r in main),
+            "bound_ms": sum(r["bound_ms"] for r in main),
+            "bound_by": main[0]["bound_by"],
+            "library_ms": sum(r["library_ms"] for r in main),
+            "shapes": [{k: r[k] for k in ("N", "In", "H", "mask", "kernel_ms", "plain_ms", "bound_ms",
+                                          "library_ms", "launch", "steps_skipped") if k in r}
                        for r in timed],
         }
 

@@ -58,26 +58,29 @@ __device__ __forceinline__ void init_bias(float (&acc)[4][R],
   }
 }
 
-// acc[q][r] += sum_k a_s[k * R + r] * f32(w[k * 4H + q * H + j]), q = 0..3.
-// The rows' inputs are staged in shared memory transposed, a_s[k * R + r],
-// so one float4 load broadcasts four rows of column k to the whole warp;
-// each thread reads its unit's four gate columns of weight row k, and
-// neighbouring threads read neighbouring columns, so the reads coalesce.
-template <int R, typename W>
-__device__ __forceinline__ void gate_products(float (&acc)[4][R],
-                                              const float* a_s, int K,
-                                              const W* __restrict__ w, int H,
-                                              int j) {
+// acc[q][r] += sum_k a_s[k * S + r] * f32(w[k * 4H + q * H + j]), q = 0..3,
+// for R rows, in order of k, one fmaf each.  The rows' inputs are staged in
+// shared memory transposed with row stride S (a thread may take R of a
+// tile's S rows), so one float4 load broadcasts four rows of column k to
+// the whole warp; each thread reads its unit's four gate columns of weight
+// row k, and neighbouring threads read neighbouring columns, so the reads
+// coalesce.  The k loop is unrolled KU times: a thread has up to 4 * KU
+// weight loads in flight.
+template <int R, int KU, typename W>
+__device__ __forceinline__ void gate_products_strided(
+    float (&acc)[4][R], const float* a_s, int S, int K,
+    const W* __restrict__ w, int H, int j) {
+  static_assert(R % 4 == 0, "rows are read as float4");
   const size_t ld = 4 * (size_t)H;
   const W* wj = w + j;
-#pragma unroll 4
+#pragma unroll (KU)
   for (int k = 0; k < K; ++k) {
     const W* wk = wj + (size_t)k * ld;
     const float w0 = load_weight(wk);
     const float w1 = load_weight(wk + H);
     const float w2 = load_weight(wk + 2 * H);
     const float w3 = load_weight(wk + 3 * H);
-    const float4* a4 = reinterpret_cast<const float4*>(a_s + k * R);
+    const float4* a4 = reinterpret_cast<const float4*>(a_s + k * S);
 #pragma unroll
     for (int v = 0; v < R / 4; ++v) {
       const float4 a = a4[v];
@@ -91,6 +94,15 @@ __device__ __forceinline__ void gate_products(float (&acc)[4][R],
       }
     }
   }
+}
+
+// The same over all R rows of a tile staged with stride R, unrolled 4.
+template <int R, typename W>
+__device__ __forceinline__ void gate_products(float (&acc)[4][R],
+                                              const float* a_s, int K,
+                                              const W* __restrict__ w, int H,
+                                              int j) {
+  gate_products_strided<R, 4>(acc, a_s, R, K, w, H, j);
 }
 
 }  // namespace

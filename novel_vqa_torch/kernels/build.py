@@ -33,6 +33,7 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # as an int, which nvqa_cuda_error_string (csrc/cell.cuh) names.
 ENTRY_POINTS = {
     "nvqa_lstm_seq_forward": [P] * 8 + [I] * 4 + [P],
+    "nvqa_lstm_seq_launch_info": [I] * 3 + [P],
     "nvqa_lstm_step_forward": [P] * 8 + [I] * 3 + [P],
     "nvqa_lstm_seq2_forward": [P] * 15 + [I] * 4 + [P],
 }

@@ -9,6 +9,15 @@ or raises: there is no fallback.  Each wrapper counts its launches in a
 plain integer attribute (``lstm_seq.launches``), so a run can show that its
 path went through the kernel.
 
+The seq kernel is bound by its fp32 FMA products (67 TFLOP/s on an H100).
+It runs a thread-block cluster of 4 CTAs per tile of rows, the CTAs
+splitting the gate columns and exchanging each step's h through
+distributed shared memory.  The launch picks the fewest rows per tile
+whose clusters the card holds at once, so 500 rows run in one wave on
+100 SMs (one block per 16-row tile used 32).  It skips the products of a
+step on which no row of its tile is active.  :func:`lstm_seq_launch_info`
+reports its launch at a shape, with the clusters the card holds at once.
+
 The kernels compute forwards only: their outputs carry no ``grad_fn``.  So
 on a CUDA tensor each wrapper raises when grad mode is on and an input
 requires grad, rather than hand a training graph outputs that would cut it
@@ -21,6 +30,7 @@ stored (in, 4H), gate order i, f, o, g.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -138,6 +148,24 @@ def lstm_seq(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
 
 
 lstm_seq.launches = 0
+
+LAUNCH_INFO_KEYS = ("cluster_ctas", "rows_per_cluster", "ctas", "max_active_clusters",
+                    "threads", "smem_bytes")
+
+
+def lstm_seq_launch_info(N: int, In: int, H: int, device=None) -> dict:
+    """The seq kernel's launch at (N, In, H) on a card, launching nothing:
+    CTAs per cluster, rows per cluster, CTAs in the grid, the clusters the
+    card can hold at once (``cudaOccupancyMaxActiveClusters``), threads and
+    dynamic shared memory per CTA; ``clusters`` is the grid's count."""
+    lib = library(SOURCE)
+    info = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
+    with torch.cuda.device(device):
+        err = lib.nvqa_lstm_seq_launch_info(N, In, H, ctypes.addressof(info))
+    raise_on(lib, err, f"lstm_seq launch info (N={N}, In={In}, H={H})")
+    out = dict(zip(LAUNCH_INFO_KEYS, info))
+    out["clusters"] = out["ctas"] // out["cluster_ctas"]
+    return out
 
 
 def lstm_step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -54,6 +54,26 @@ def test_seq_plain_matches_pallas_seq_interpret():
         np.testing.assert_allclose(a.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("pattern", ["leading", "interior", "none_active"])
+def test_seq_plain_keeps_the_state_through_steps_no_row_takes(pattern):
+    """A step on which no row is active leaves c and h as they are, for any
+    mask: the seq kernel skips such a step's products and writes
+    hs[t] = h.  The plain version against the Pallas kernel (interpret
+    mode) on masks with such steps first, in the middle, and throughout."""
+    (layer,) = _layers([(8, 16)], seed=5)
+    xs, mask = _ragged(8, 10, 8, seed=5)
+    idle = {"leading": [0, 1, 2], "interior": [3, 4], "none_active": list(range(8))}[pattern]
+    mask[idle] = 0.0
+    c_j, h_j, hs_j = pallas_lstm_seq(layer, jnp.asarray(xs), jnp.asarray(mask), tile_n=8, interpret=True)
+    b = _t(layer["bx"] + layer["bh"])
+    c_t, h_t, hs_t = K.lstm_seq_plain(_t(xs), _t(mask), _t(layer["wx"]), _t(layer["wh"]), b)
+    for a, ref in ((c_t, c_j), (h_t, h_j), (hs_t, hs_j)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(ref), **TOL)
+    for t in idle:
+        prev = hs_t[t - 1] if t > 0 else torch.zeros_like(hs_t[0])
+        assert torch.equal(hs_t[t], prev)
+
+
 def test_encode_matches_pallas_encode_and_jax_encode():
     layers = _layers([(8, 16), (16, 16)], seed=3)
     xs, mask = _ragged(6, 10, 8, seed=4)
