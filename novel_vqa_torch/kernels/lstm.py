@@ -153,19 +153,24 @@ LAUNCH_INFO_KEYS = ("cluster_ctas", "rows_per_cluster", "ctas", "max_active_clus
                     "threads", "smem_bytes")
 
 
-def lstm_seq_launch_info(N: int, In: int, H: int, device=None) -> dict:
-    """The seq kernel's launch at (N, In, H) on a card, launching nothing:
-    CTAs per cluster, rows per cluster, CTAs in the grid, the clusters the
-    card can hold at once (``cudaOccupancyMaxActiveClusters``), threads and
+def launch_info(lib, kernel: str, N: int, In: int, H: int, device=None) -> dict:
+    """A cluster kernel's launch at (N, In, H) on a card, from the C entry
+    point ``nvqa_<kernel>_launch_info`` of ``lib``, launching nothing: CTAs
+    per cluster, rows per cluster, CTAs in the grid, the clusters the card
+    can hold at once (``cudaOccupancyMaxActiveClusters``), threads and
     dynamic shared memory per CTA; ``clusters`` is the grid's count."""
-    lib = library(SOURCE)
     info = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
     with torch.cuda.device(device):
-        err = lib.nvqa_lstm_seq_launch_info(N, In, H, ctypes.addressof(info))
-    raise_on(lib, err, f"lstm_seq launch info (N={N}, In={In}, H={H})")
+        err = getattr(lib, f"nvqa_{kernel}_launch_info")(N, In, H, ctypes.addressof(info))
+    raise_on(lib, err, f"{kernel} launch info (N={N}, In={In}, H={H})")
     out = dict(zip(LAUNCH_INFO_KEYS, info))
     out["clusters"] = out["ctas"] // out["cluster_ctas"]
     return out
+
+
+def lstm_seq_launch_info(N: int, In: int, H: int, device=None) -> dict:
+    """The seq kernel's launch at (N, In, H), as :func:`launch_info`."""
+    return launch_info(library(SOURCE), "lstm_seq", N, In, H, device)
 
 
 def lstm_step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:

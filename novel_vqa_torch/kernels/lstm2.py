@@ -5,7 +5,13 @@ both layers of a 2-layer masked LSTM over all T steps from a zero state,
 layer 2 fed ``bf16(f32(bf16(h1)) * f32(drop[t]))``, the inter-layer dropout
 multiplier.  Storage is bf16 (inputs, weights, biases, the saved states
 ``hs1``/``hs2``), products are bf16 x bf16 summed in f32 and the carries
-stay f32, as in the Pallas kernel.  The CUDA kernel is in ``csrc/lstm2.cu``.
+stay f32, as in the Pallas kernel.  The CUDA kernel is in ``csrc/lstm2.cu``:
+like the seq kernel, a thread-block cluster of 4 CTAs per tile of rows that
+split the gate columns of both layers and exchange bf16(h1), the layer-2
+input and bf16(h2) through distributed shared memory, the layers run as the
+Pallas kernel's wavefront (layer-2 step t-1 beside layer-1 step t), steps no
+row of a tile takes skipped per layer; :func:`lstm_seq2_launch_info` reports
+its launch at a shape.
 
 As in ``kernels/lstm.py``: the wrapper runs the plain version when the
 tensor it is given lies on the CPU, and on a CUDA tensor launches the
@@ -27,7 +33,7 @@ from typing import Dict, Tuple
 import torch
 
 from novel_vqa_torch.kernels.build import library
-from novel_vqa_torch.kernels.lstm import cell, check, raise_on, refuse_grad
+from novel_vqa_torch.kernels.lstm import cell, check, launch_info, raise_on, refuse_grad
 
 SOURCE = "lstm2.cu"
 
@@ -140,3 +146,9 @@ def lstm_seq2(xs, mask, drop, wx1, wh1, b1, wx2, wh2, b2) -> Seq2Out:
 
 
 lstm_seq2.launches = 0
+
+
+def lstm_seq2_launch_info(N: int, In: int, H: int, device=None) -> dict:
+    """The seq2 kernel's launch at (N, In, H), as
+    :func:`novel_vqa_torch.kernels.lstm.launch_info`."""
+    return launch_info(library(SOURCE), "lstm_seq2", N, In, H, device)

@@ -13,6 +13,9 @@ Gradients: within 1e-4 of the largest entry of each gradient (the
 backward rounds the gate gradients to bf16 before its products, where an
 f32 last-bit difference can move one entry by a bf16 ulp)."""
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,7 @@ from novel_vqa_tpu.ops import lstm as jlstm
 from novel_vqa_tpu.ops import pallas_lstm2 as pl2
 
 from novel_vqa_torch.core.convert import lstm_params_from_numpy
+from novel_vqa_torch.kernels import build
 from novel_vqa_torch.kernels import lstm as K
 from novel_vqa_torch.kernels import lstm2 as K2
 from novel_vqa_torch.ops import lstm as tlstm
@@ -33,14 +37,29 @@ T, In, H = 5, 24, 16
 JBF, TBF = jnp.bfloat16, torch.bfloat16
 
 
-def _case(N, seed=0):
-    """Ragged right-aligned mask, inputs, a {0, 2} multiplier and six
+@pytest.fixture(scope="module")
+def chip_smoke():
+    """``chip_smoke.py`` at the repository root (torch and numpy only),
+    loaded by the tests that use it alone."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _case(N, seed=0, T_=T, gaps_mask=None):
+    """Ragged right-aligned mask (or ``gaps_mask``'s left-aligned one, with
+    interior steps no row takes), inputs, a {0, 2} multiplier and six
     weights/biases (uniform +-0.08, biases as bx + bh), all numpy f32."""
     rs = np.random.RandomState(seed)
-    xs = rs.randn(T, N, In).astype(np.float32)
-    lengths = rs.randint(1, T + 1, size=N)
-    mask = (np.arange(T)[:, None] >= (T - lengths[None, :])).astype(np.float32)
-    drop = (rs.binomial(1, 0.5, size=(T, N, H)) * 2.0).astype(np.float32)
+    xs = rs.randn(T_, N, In).astype(np.float32)
+    lengths = rs.randint(1, T_ + 1, size=N)
+    mask = (np.arange(T_)[:, None] >= (T_ - lengths[None, :])).astype(np.float32)
+    if gaps_mask is not None:
+        gen = torch.Generator().manual_seed(seed)
+        mask = gaps_mask(T_, N, gen, torch.device("cpu")).numpy()
+    drop = (rs.binomial(1, 0.5, size=(T_, N, H)) * 2.0).astype(np.float32)
     shapes = [(In, 4 * H), (H, 4 * H), (4 * H,), (H, 4 * H), (H, 4 * H), (4 * H,)]
     ws = [rs.uniform(-0.08, 0.08, s).astype(np.float32) for s in shapes]
     ws[2] += rs.uniform(-0.08, 0.08, 4 * H).astype(np.float32)
@@ -58,10 +77,20 @@ def _bf16_ulp(ref):
     return np.exp2(np.floor(np.log2(mag)) - 7)
 
 
-@pytest.mark.parametrize("N", [12, 13])
-def test_seq2_plain_and_fused2_forward_match_pallas_interpret(N):
-    # N=13 is not a multiple of the Pallas tile (its padding path)
-    xs, mask, drop, ws = _case(N)
+@pytest.mark.parametrize("N, T_, gaps", [
+    pytest.param(12, T, False, id="12"),
+    pytest.param(13, T, False, id="13"),
+    pytest.param(13, 8, True, id="13-gaps"),
+])
+def test_seq2_plain_and_fused2_forward_match_pallas_interpret(N, T_, gaps, request):
+    # N=13 is not a multiple of the Pallas tile (its padding path); the
+    # gaps mask (chip_smoke.gaps_mask) has steps no row takes with computed
+    # steps after them, and trailing ones, which the CUDA kernel skips
+    gaps_mask = request.getfixturevalue("chip_smoke").gaps_mask if gaps else None
+    xs, mask, drop, ws = _case(N, T_=T_, gaps_mask=gaps_mask)
+    if gaps:
+        idle = ~mask.any(axis=1)
+        assert idle[2:4].all() and mask[4:].any() and not idle[:2].any()
     j_in = [jnp.asarray(xs, JBF), jnp.asarray(mask), jnp.asarray(drop, JBF)]
     j_in += [jnp.asarray(w, JBF) for w in ws]
     ref = [np.asarray(o, np.float32) for o in pl2._seq2_forward(*j_in, tile_n=8, interpret=True)]
@@ -74,7 +103,7 @@ def test_seq2_plain_and_fused2_forward_match_pallas_interpret(N):
         for a, b in zip(got, ref[:4]):
             np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-5)
     for a, b in zip(plain[4:], ref[4:]):
-        assert a.shape == (T, N, H)
+        assert a.shape == (T_, N, H)
         assert np.all(np.abs(a.float().numpy() - b) <= _bf16_ulp(b))
 
 
@@ -121,6 +150,22 @@ def _replay_case(seed=6, N=16, H_=64, keep=0.7):
     ws = [uni(*s, scale=sc) for s, sc in (((In, 4 * H_), 0.08), ((H_, 4 * H_), 0.08), ((4 * H_,), 0.16),
                                            ((H_, 4 * H_), 0.08), ((H_, 4 * H_), 0.08), ((4 * H_,), 0.16))]
     return (uni(8, N, In), mask, drop, *ws)
+
+
+SEQ2_MUTANT_NAMES = ("d_from_f32_h1", "d_toward_zero", "h1_exchange_toward_zero", "h1_toward_zero",
+                     "h2_exchange_toward_zero", "hs1_toward_zero", "hs2_toward_zero")
+
+
+@pytest.mark.parametrize("name", SEQ2_MUTANT_NAMES)
+def test_seq2_mutant_edits_one_line_of_the_kernel_source(name, chip_smoke):
+    """``chip_smoke.py --seq2-mutants`` builds each variant by replacing one
+    text of csrc/lstm2.cu: it must occur exactly once, or the variant is not
+    the fault it names."""
+    assert sorted(chip_smoke.SEQ2_MUTANTS) == list(SEQ2_MUTANT_NAMES)
+    old, new = chip_smoke.SEQ2_MUTANTS[name]
+    source = (build.CSRC / K2.SOURCE).read_text()
+    assert source.count(old) == 1
+    assert source.replace(old, new) != source
 
 
 def test_seq2_replay_of_its_own_states_is_the_plain_run():
