@@ -25,7 +25,15 @@ Phases, each printing one JSON line:
      per tile.  The seq2 kernel (also a cluster kernel) runs the train
      slice's multiplier at uniform right-aligned lengths and at the
      slices' question lengths (both timed), and the gaps masks at
-     keep 0.7; its rows report the same launch and skip;
+     keep 0.7; its rows report the same launch and skip.  The step
+     kernel runs a stack step of the step route (In=200, then 512), the
+     autoencoder's width (N=1000) and odd shapes on both of its tiles; its
+     rows report its launch (tile, CTAs, the CTAs an SM holds, one wave)
+     and, where timed, the device time per call from a CUDA graph of 20
+     calls (``device_ms``) beside the time per call a Python caller sees
+     (``kernel_ms``), the same for its plain version and the library
+     call; the build line reports its registers and spills (a spill
+     fails the run);
   4. autograd: the forward-only kernel wrappers refuse an input that
      requires grad under grad mode, and launch nothing;
   5. slice: arch1 test-split inference through the eval CLI at the
@@ -149,6 +157,35 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20, reps: int = REPS, warmup: int = 3) -> float:
+    """Device time per call without the host's issue: ``calls`` calls of
+    ``fn`` captured in one CUDA graph after warm-up (so no one-time host
+    set-up runs inside the capture), the graph replayed ``reps`` times
+    between CUDA events; the median per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -158,6 +195,24 @@ def ptxas_lines(log: str):
     """What ptxas -v said of each kernel: entry, registers, spills."""
     return [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
+def ptxas_report(lines, kernel: str):
+    """Registers and spilled bytes of each compiled variant of ``kernel``
+    (its entries in ``ptxas_lines``' output, which ptxas prints in the order
+    entry, spills, registers)."""
+    out, entry = [], None
+    for ln in lines:
+        if "Compiling entry" in ln:
+            entry = {"entry": ln.split("'")[1]} if kernel in ln else None
+            if entry:
+                out.append(entry)
+        elif entry is not None and "spill" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            entry["spill_bytes"] = nums[1] + nums[2]  # stores + loads
+        elif entry is not None and "registers" in ln:
+            entry["registers"] = int(ln.split("Used ")[1].split()[0])
+    return out
 
 
 def max_err(got, ref) -> float:
@@ -289,25 +344,56 @@ def seq_case(K, N, In, H_, mask_kind, timed, gen, dev):
     return row
 
 
-def step_case(K, N, In, H_, gen, dev, timed):
+# the step kernel's cases: (N, In, H, timed, main); the first two are a
+# stack step of the step route (In = E, then H), whose times the kernel line
+# sums; then the autoencoder's width (train_text_ae.py:49-53), N a multiple
+# of the row tile, and odd shapes: ragged row, unit and k tiles, rows not
+# 16-byte aligned (In=13, 4-byte copies), more hidden units than one unit
+# tile (H=600); the last two on the wide tile (more CTAs than SMs), the
+# others at N <= 500 on the narrow one
+STEP_CASES = ((BATCH, E, H, True, True), (BATCH, H, H, True, True),
+              (1000, H, H, True, False), (128, H, H, False, False),
+              (13, 24, 40, False, False), (13, 24, 600, False, False), (7, 13, 37, False, False),
+              (1000, E, 300, False, False), (1000, 13, 300, False, False))
+
+
+def step_inputs(N, In, H_, gen, dev):
     x, h, c = uniform(gen, dev, N, In), uniform(gen, dev, N, H_), uniform(gen, dev, N, H_)
     wx, wh = uniform(gen, dev, In, 4 * H_, scale=0.08), uniform(gen, dev, H_, 4 * H_, scale=0.08)
     b = uniform(gen, dev, 4 * H_, scale=0.16)
-    got = K.lstm_step(x, h, c, wx, wh, b)
+    return x, h, c, wx, wh, b
+
+
+def step_case(K, N, In, H_, timed, main, gen, dev):
+    x, h, c, wx, wh, b = args = step_inputs(N, In, H_, gen, dev)
+    got = K.lstm_step(*args)
     torch.cuda.synchronize()
-    ref = K.lstm_step_plain(x, h, c, wx, wh, b)
+    ref = K.lstm_step_plain(*args)
     check_close(f"lstm_step N={N} In={In} H={H_}", got, ref)
-    row = {"kernel": "lstm_step", "N": N, "In": In, "H": H_, "max_abs_err": max_err(got, ref),
-           "errs": errs(("c", "h"), got, ref)}
+    launch = K.lstm_step_launch_info(N, In, H_, dev)
+    launch["one_wave"] = launch["ctas"] <= launch["ctas_per_sm"] * launch["sms"]
+    row = {"kernel": "lstm_step", "N": N, "In": In, "H": H_, "main": main,
+           "max_abs_err": max_err(got, ref), "errs": errs(("c", "h"), got, ref), "launch": launch}
     if timed:
         flops = 2.0 * N * (In + H_) * 4 * H_
         nbytes = 4.0 * (x.numel() + 2 * h.numel() + wx.numel() + wh.numel() + b.numel() + 2 * N * H_)
         w_ih, w_hh, b_hh = wx.t().contiguous(), wh.t().contiguous(), torch.zeros_like(b)
+
+        def kernel():
+            K.lstm_step(*args)
+
+        def plain():
+            K.lstm_step_plain(*args)
+
+        def library():
+            torch.lstm_cell(x, (h, c), w_ih, w_hh, b, b_hh)
+
+        # per call as a Python caller pays it (CUDA events around one call,
+        # host issue included), and device time alone (CUDA-graph replay)
         row.update(
-            kernel_ms=time_ms(lambda: K.lstm_step(x, h, c, wx, wh, b)),
-            plain_ms=time_ms(lambda: K.lstm_step_plain(x, h, c, wx, wh, b)),
-            library_ms=time_ms(lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b, b_hh)),
-            library="torch.lstm_cell (fp32)",
+            kernel_ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=time_ms(library),
+            device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
+            library_device_ms=device_ms(library), library="torch.lstm_cell (fp32)",
         )
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
     return row
@@ -913,7 +999,13 @@ def main(argv=None) -> int:
         logs = {src: fut.result()[1] for src, fut in
                 [(src, pool.submit(build.build, src)) for src in SOURCES]}
     ptxas = {src: ptxas_lines(log) for src, log in logs.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    # the step kernel's variants (16- and 4-byte copies) spill nothing; an
+    # empty report means the libraries were built before this run
+    step_ptxas = ptxas_report(ptxas["lstm.cu"], "lstm_step_kernel")
+    if any(v.get("spill_bytes") != 0 for v in step_ptxas):
+        raise AssertionError(f"the step kernel spills: {step_ptxas}")
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
+          "step_kernel_ptxas": step_ptxas or "not built in this run"})
 
     if opts.seq2_mutants:
         out = run_seq2_mutants(K2, dev)
@@ -925,12 +1017,8 @@ def main(argv=None) -> int:
         return 0 if passed and rejected else 1
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    # the main paths' shapes, then odd ones: ragged row and unit tiles, and
-    # (H=600) more hidden units than threads in a block
-    odd = ((13, 24, 40), (13, 24, 600))
     seq_rows = [seq_case(K, *case, gen, dev) for case in SEQ_CASES]
-    step_rows = [step_case(K, BATCH, In, H, gen, dev, timed=True) for In in (E, H)]
-    step_rows += [step_case(K, *shape, gen, dev, timed=False) for shape in odd]
+    step_rows = [step_case(K, *case, gen, dev) for case in STEP_CASES]
     seq2_rows = [seq2_case(K2, *case, gen, dev) for case in SEQ2_CASES]
     for row in seq_rows + step_rows + seq2_rows:
         emit({"phase": "kernel_check", **row})
@@ -946,8 +1034,8 @@ def main(argv=None) -> int:
 
     def entry(name, rows, launches, replaces, source=SOURCE):
         timed = [r for r in rows if "kernel_ms" in r]
-        main = [r for r in timed if r.get("main", True)]
-        return {
+        main = [r for r in timed if r["main"]]
+        out = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -958,10 +1046,15 @@ def main(argv=None) -> int:
             "bound_ms": sum(r["bound_ms"] for r in main),
             "bound_by": main[0]["bound_by"],
             "library_ms": sum(r["library_ms"] for r in main),
-            "shapes": [{k: r[k] for k in ("N", "In", "H", "mask", "keep", "kernel_ms", "plain_ms", "bound_ms",
-                                          "library_ms", "launch", "steps_skipped") if k in r}
-                       for r in timed],
         }
+        for key in ("device_ms", "plain_device_ms", "library_device_ms"):
+            if key in main[0]:
+                out[key] = sum(r[key] for r in main)
+        out["shapes"] = [{k: r[k] for k in ("N", "In", "H", "mask", "keep", "kernel_ms", "plain_ms", "bound_ms",
+                                            "library_ms", "device_ms", "plain_device_ms", "library_device_ms",
+                                            "launch", "steps_skipped") if k in r}
+                         for r in timed]
+        return out
 
     kernels = [
         entry("lstm_seq", seq_rows, slice_out["launches"]["lstm_seq"], SEQ_REPLACES),

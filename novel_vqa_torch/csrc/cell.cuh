@@ -96,15 +96,6 @@ __device__ __forceinline__ void gate_products_strided(
   }
 }
 
-// The same over all R rows of a tile staged with stride R, unrolled 4.
-template <int R, typename W>
-__device__ __forceinline__ void gate_products(float (&acc)[4][R],
-                                              const float* a_s, int K,
-                                              const W* __restrict__ w, int H,
-                                              int j) {
-  gate_products_strided<R, 4>(acc, a_s, R, K, w, H, j);
-}
-
 }  // namespace
 
 extern "C" const char* nvqa_cuda_error_string(int err) {

@@ -2,16 +2,16 @@
 // library with a plain C interface (see novel_vqa_torch/kernels/build.py).
 //
 // Both kernels compute the fused-gate LSTM cell of the JAX package (the cell
-// and the gate products are in cell.cuh; b = bx + bh):
+// is in cell.cuh; b = bx + bh):
 //
 //     gates = x @ Wx + h @ Wh + b;  c', h' = cell(gates, c)
 //
-// A thread owns one hidden unit j and a few batch rows, and accumulates the
-// unit's four gate columns (j, H+j, 2H+j, 3H+j) for those rows in registers.
-// The rows' inputs are staged in shared memory transposed; the weights are
-// read from global memory, where they stay hot in the 50 MB L2 cache.  The
-// cell update runs in the epilogue, so the (N, 4H) gate matrix never reaches
-// device memory.  All arithmetic is fp32 FMA (no tensor cores, no TF32).
+// A thread accumulates all four gate columns (j, H+j, 2H+j, 3H+j) of its
+// hidden units for a few batch rows in registers, so the cell update runs
+// in the epilogue and the (N, 4H) gate matrix never reaches device memory.
+// Each output is summed as the bias, then x @ Wx over k = 0..In-1, then
+// h @ Wh over k = 0..H-1, one fmaf each, in order.  All arithmetic is fp32
+// FMA (no tensor cores, no TF32).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -19,7 +19,9 @@
 
 #include <map>
 #include <mutex>
+#include <set>
 #include <tuple>
+#include <utility>
 
 #include "cell.cuh"
 
@@ -38,8 +40,26 @@ constexpr int kSeqMaxThreads = 640;
 // card reserves per block: an SM holds one seq CTA, so a cluster's CTAs
 // land on as many SMs and the card holds a fixed number of clusters.
 constexpr size_t kSeqMinSmem = 116 * 1024;
-constexpr int kStepRows = 8;      // batch rows per block, step kernel
-constexpr int kStepUnits = 128;   // hidden units per block, step kernel
+// Step kernel: a CTA's tile of Rows batch rows by 32 hidden units (all four
+// gates of each unit), RT batch rows per thread (which owns 2 units), BK k
+// per pipeline stage, and Stages stages in its cp.async ring.
+template <int Rows, int RT, int BK, int Stages>
+struct StepTile {
+  static constexpr int kRows = Rows, kRT = RT, kBK = BK, kStages = Stages;
+  static constexpr int kUnits = 32;
+  static constexpr int kCols = 4 * kUnits;  // gate columns
+  static constexpr int kThreads = Rows / RT * (kUnits / 2);
+  // floats between two rows of a stage's inputs: the two row groups of a
+  // warp read neighbouring rows, which must lie in other banks
+  static constexpr int kAStride = BK % 32 == 0 ? BK + 4 : BK;
+  // one stage: the rows' inputs [row][k], then the weights [k][gate][unit]
+  static constexpr int kStageFloats = Rows * kAStride + BK * kCols;
+  static constexpr size_t kSmem = Stages * kStageFloats * sizeof(float);
+};
+// The tile when the grid of 64-row CTAs has more CTAs than the card has
+// SMs; when it has not, half the rows per CTA, so SMs hold two (step_plan).
+using StepWide = StepTile<64, 8, 16, 4>;
+using StepNarrow = StepTile<32, 4, 32, 3>;
 
 // dst[k * R + r] = src[(n0 + r) * K + k], zero for rows n0 + r >= N.
 __device__ __forceinline__ void stage_rows(float* dst,
@@ -51,13 +71,6 @@ __device__ __forceinline__ void stage_rows(float* dst,
     const int n = n0 + r;
     dst[k * R + r] = n < N ? src[(size_t)n * K + k] : 0.0f;
   }
-}
-
-template <int R>
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const float* __restrict__ src,
-                                           int n0, int N, int K) {
-  stage_rows(dst, src, n0, N, K, R);
 }
 
 // ---------------------------------------------------------------------------
@@ -211,47 +224,279 @@ __global__ void __launch_bounds__(kSeqMaxThreads, 1)
 // one LSTM cell step, the two products, the bias, the gate nonlinearities
 // and the cell update in one pass, the gates never leaving the chip.
 //
-// Bound on the H100: operations.  At N=500, In=H=512 a step is 2.1 GFLOP of
-// fp32 FMA against ~10 MB of traffic.
+// Bound on the H100: fp32 operations.  At N=500, H=512 a stack step (In=200,
+// then In=512) is 3.6 GFLOP of FMA, 0.053 ms at 67 TFLOP/s, against ~14 MB
+// of traffic (0.004 ms).
 //
-// Design: the grid covers (row tile x hidden-unit tile): kStepRows rows by
-// kStepUnits units per block, 252 blocks at N=500, H=512.  A block stages
-// its x and h rows in shared memory, each thread accumulates the four gate
-// columns of its unit over K = In + H, and the cell update runs in the
-// epilogue.  The ragged edges of N and H are masked in place: no padding.
+// Design: a register-tiled fp32 product.  A CTA owns a tile of batch rows
+// by 32 hidden units with all four gates of each (128 gate columns), 128
+// threads; a thread owns RT rows x 2 adjacent units x 4 gates, so all four
+// gates of its units meet in its registers and the cell runs in the
+// epilogue.  Two tiles (StepTile), chosen at launch (step_plan):
+// - wide, 64 rows, 8 rows per thread (64 accumulators), 16 k per stage, 4
+//   stages: at N=1000, H=512 (the autoencoder) 256 CTAs, two per SM;
+// - narrow, 32 rows, 4 rows per thread, 32 k per stage, 3 stages, when the
+//   wide grid would hold no more CTAs than the card has SMs: at N=500,
+//   H=512, 256 CTAs rather than 128, so each SM holds two CTAs whose warps
+//   hide each other's stalls (one wide CTA per SM leaves each scheduler a
+//   single warp: 7-8% slower there on an H100 SXM, and the narrow tile 8%
+//   slower than the wide one at N=1000).
+// - L2 traffic.  The kernel this replaced (a thread per unit, 8 rows per
+//   block, weights read from global memory) read each weight from L2 for
+//   every 8 rows (~0.9 GB per stack step).  Here both operands pass through shared
+//   memory in a ring of stages, filled by 16-byte cp.async.cg copies
+//   Stages - 1 stages ahead of use: each weight is fetched once per tile
+//   of rows and each input once per 32 units (~0.1-0.2 GB per stack step).
+//   The k loop runs over x @ Wx, then h @ Wh, two source pointers feeding
+//   one ring; each thread's copy addresses are set up once per operand.
+// - Issue slots.  fp32 FFMA at the SM's full rate takes every issue slot,
+//   so each shared-memory load costs an FMA.  Inputs are staged [row][k]
+//   (no transpose: cp.async copies rows as they lie) and a thread reads 4 k
+//   of a row with one 16-byte load; weights are staged [k][gate][unit] and
+//   it reads its 2 units of a gate with one 8-byte load.  Per 4 k that is
+//   RT + 16 loads for 32 RT FMAs.  Within a load, the threads of a quarter
+//   warp read one address (inputs) or neighbouring words (weights); the
+//   two row groups of a warp read rows that lie in other banks.
+// - Ragged edges.  Rows past N and units past H are zero-filled (cp.async
+//   src-size 0) and never stored.  A stage past In or H is cut short: its
+//   k loop stops at the edge, so no output takes an FMA beyond K.  When In
+//   or H is not a multiple of 4, or an operand is not 16-byte aligned, the
+//   copies are 4 bytes each (kVec false).
+// Each output takes the bias, then x @ Wx for k = 0..In-1, then h @ Wh for
+// k = 0..H-1, one fmaf each: the order of the kernel this replaced, so the
+// outputs are its bits.
 // ---------------------------------------------------------------------------
-template <int R>
-__global__ void __launch_bounds__(kStepUnits)
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid, bool vec) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (vec)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// A thread's copies into one stage of the ring from one operand pair: rows
+// a (N, K) and weights w (K, 4H).  The stage holds
+// a_s[r * kAStride + kk] = a[(n0 + r) * K + k0 + kk] and
+// w_s[kk * 128 + q * 32 + u] = w[(k0 + kk) * 4H + q * H + j0 + u], zero past
+// N, K and H.  A thread's copies keep their place in every stage: A copy i
+// takes row ra + i * kARows at k = ka, W copy i weight row kw + i * kWKs at
+// column (q, u).  So their sources are set up once per operand pair and a
+// stage adds k0; a masked copy reads nothing (src-size 0) from the
+// operand's first element.  With kVec each copy moves 4 floats, which lie
+// all within or all past those edges (In, H and k0 are multiples of 4, j0
+// of 32).
+template <class T, bool kVec>
+struct StepCopies {
+  static constexpr int V = kVec ? 4 : 1;  // floats per copy
+  static constexpr int kA = T::kRows * T::kBK / V / T::kThreads;
+  static constexpr int kW = T::kBK * T::kCols / V / T::kThreads;
+  static constexpr int kARows = T::kThreads * V / T::kBK;
+  static constexpr int kWKs = T::kThreads * V / T::kCols;
+  static_assert(kA * T::kThreads * V == T::kRows * T::kBK &&
+                    kW * T::kThreads * V == T::kBK * T::kCols,
+                "every thread makes the same number of copies");
+  static_assert(T::kThreads * V % T::kBK == 0 &&
+                    T::kThreads * V % T::kCols == 0,
+                "a thread's copies share their k (A) and column (W)");
+
+  const float* a;  // the operands' first elements
+  const float* w;
+  const float* a0;  // A copy 0's source at k0 = 0
+  const float* w0;  // W copy 0's source at k0 = 0
+  size_t a_ld, w_ld;  // floats between a thread's copies
+  int K, ka, kw;
+  int a_dst, w_dst;  // copy 0's place in a stage
+  bool w_ok;         // its weight column lies within H
+  unsigned a_ok;     // bit i: A copy i's row lies within N
+
+  __device__ __forceinline__ StepCopies(const float* __restrict__ a_,
+                                        const float* __restrict__ w_, int n0,
+                                        int N, int K_, int j0, int H)
+      : a(a_), w(w_), K(K_) {
+    const int t = threadIdx.x;
+    const int ra = t / (T::kBK / V);
+    ka = (t - ra * (T::kBK / V)) * V;
+    kw = t / (T::kCols / V);
+    const int col = (t - kw * (T::kCols / V)) * V;
+    const int q = col / T::kUnits;
+    const int u = col - q * T::kUnits;
+    a_ok = 0;
+#pragma unroll
+    for (int i = 0; i < kA; ++i)
+      a_ok |= (unsigned)(n0 + ra + i * kARows < N) << i;
+    w_ok = j0 + u < H;
+    a_ld = (size_t)kARows * K;
+    w_ld = (size_t)kWKs * 4 * H;
+    a0 = a + (size_t)(n0 + ra) * K + ka;
+    w0 = w + (size_t)kw * 4 * H + q * H + j0 + u;
+    a_dst = ra * T::kAStride + ka;
+    w_dst = kw * T::kCols + col;
+  }
+
+  __device__ __forceinline__ void load(float* a_s, float* w_s, int k0,
+                                       int H) const {
+    const bool k_ok = k0 + ka < K;
+    const float* as = a0 + k0;
+#pragma unroll
+    for (int i = 0; i < kA; ++i) {
+      const bool ok = k_ok && ((a_ok >> i) & 1u);
+      cp_async(a_s + a_dst + i * kARows * T::kAStride, ok ? as + i * a_ld : a,
+               ok, kVec);
+    }
+    const float* ws = w0 + (size_t)k0 * 4 * H;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      const bool ok = w_ok && k0 + kw + i * kWKs < K;
+      cp_async(w_s + w_dst + i * kWKs * T::kCols, ok ? ws + i * w_ld : w, ok,
+               kVec);
+    }
+  }
+};
+
+__device__ __forceinline__ float lane(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc[q][u][e] += a_t[e * G * kAStride + kk] * w_t[kk * 128 + q * 32 + u]
+// for the stage's first kn k, in order of kk.  a_t points at the thread's
+// first row (its rows are G = kRows / kRT apart), w_t at its first unit.
+template <class T>
+__device__ __forceinline__ void step_products(float (&acc)[4][2][T::kRT],
+                                              const float* a_t,
+                                              const float* w_t, int kn) {
+  constexpr int RT = T::kRT;
+  constexpr int kRowStride = T::kRows / RT * T::kAStride;
+  if (kn == T::kBK) {
+#pragma unroll
+    for (int k4 = 0; k4 < T::kBK; k4 += 4) {
+      float4 av[RT];
+#pragma unroll
+      for (int e = 0; e < RT; ++e)
+        av[e] = *reinterpret_cast<const float4*>(a_t + e * kRowStride + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float2 wv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          wv[q] = *reinterpret_cast<const float2*>(
+              w_t + (k4 + kk) * T::kCols + q * T::kUnits);
+#pragma unroll
+        for (int e = 0; e < RT; ++e) {
+          const float a = lane(av[e], kk);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc[q][0][e] = fmaf(a, wv[q].x, acc[q][0][e]);
+            acc[q][1][e] = fmaf(a, wv[q].y, acc[q][1][e]);
+          }
+        }
+      }
+    }
+    return;
+  }
+  for (int kk = 0; kk < kn; ++kk) {  // the last stage of In or H
+    float2 wv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      wv[q] = *reinterpret_cast<const float2*>(w_t + kk * T::kCols +
+                                               q * T::kUnits);
+#pragma unroll
+    for (int e = 0; e < RT; ++e) {
+      const float a = a_t[e * kRowStride + kk];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[q][0][e] = fmaf(a, wv[q].x, acc[q][0][e]);
+        acc[q][1][e] = fmaf(a, wv[q].y, acc[q][1][e]);
+      }
+    }
+  }
+}
+
+template <class T, bool kVec>
+__global__ void __launch_bounds__(T::kThreads, 2)
     lstm_step_kernel(const float* __restrict__ x, const float* __restrict__ h,
                      const float* __restrict__ c,
                      const float* __restrict__ wx,
                      const float* __restrict__ wh,
                      const float* __restrict__ b, float* __restrict__ c_out,
                      float* __restrict__ h_out, int N, int In, int H) {
+  constexpr int S = T::kStages, BK = T::kBK, RT = T::kRT;
+  constexpr int kAFloats = T::kRows * T::kAStride;  // a stage's inputs
   extern __shared__ float4 smem4[];
-  float* x_s = reinterpret_cast<float*>(smem4);  // In * R
-  float* h_s = x_s + (size_t)In * R;             // H * R
-  const int n0 = blockIdx.x * R;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n0 = blockIdx.x * T::kRows;
+  const int j0 = blockIdx.y * T::kUnits;
+  // the thread's rows rg + e * kRows / RT; a warp holds two row groups
+  const int rg = threadIdx.x / (T::kUnits / 2);
+  const int up = threadIdx.x - rg * (T::kUnits / 2);  // unit pair
+  const int nx = (In + BK - 1) / BK;  // stages of x @ Wx
+  const int ns = nx + (H + BK - 1) / BK;
 
-  stage_rows<R>(x_s, x, n0, N, In);
-  stage_rows<R>(h_s, h, n0, N, H);
-  __syncthreads();
-  if (j >= H) return;
-
-  float acc[4][R];
-  init_bias<R>(acc, b, H, j);
-  gate_products<R>(acc, x_s, In, wx, H, j);
-  gate_products<R>(acc, h_s, H, wh, H, j);
+  // stage s: x @ Wx over k = s * BK .. for s < nx, then h @ Wh; stages
+  // are loaded in order, so the copies switch operands once, at s = nx
+  StepCopies<T, kVec> copies(x, wx, n0, N, In, j0, H);
+  auto load = [&](int s) {
+    float* a_s = smem + (s % S) * T::kStageFloats;
+    if (s == nx) copies = StepCopies<T, kVec>(h, wh, n0, N, H, j0, H);
+    copies.load(a_s, a_s + kAFloats, (s < nx ? s : s - nx) * BK, H);
+  };
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int n = n0 + r;
-    if (n < N) {
-      float cn, hn;
-      lstm_cell(acc[0][r], acc[1][r], acc[2][r], acc[3][r],
-                c[(size_t)n * H + j], &cn, &hn);
-      c_out[(size_t)n * H + j] = cn;
-      h_out[(size_t)n * H + j] = hn;
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ns) load(s);
+    cp_async_commit();  // one group per stage, empty ones too
+  }
+
+  float acc[4][2][RT];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = j0 + 2 * up + u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float bq = j < H ? load_weight(b + q * H + j) : 0.0f;
+#pragma unroll
+      for (int e = 0; e < RT; ++e) acc[q][u][e] = bq;
+    }
+  }
+
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait<S - 2>();  // this thread's copies of stage s have landed
+    // ... and every thread's; and every thread is done with stage s - 1,
+    // whose buffer the next load refills
+    __syncthreads();
+    if (s + S - 1 < ns) load(s + S - 1);
+    cp_async_commit();
+    const float* a_s = smem + (s % S) * T::kStageFloats;
+    const int kn = s < nx ? min(BK, In - s * BK) : min(BK, H - (s - nx) * BK);
+    step_products<T>(acc, a_s + rg * T::kAStride, a_s + kAFloats + 2 * up, kn);
+  }
+
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = j0 + 2 * up + u;
+    if (j >= H) continue;
+#pragma unroll
+    for (int e = 0; e < RT; ++e) {
+      const int n = n0 + rg + e * (T::kRows / RT);
+      if (n < N) {
+        float cn, hn;
+        lstm_cell(acc[0][u][e], acc[1][u][e], acc[2][u][e], acc[3][u][e],
+                  c[(size_t)n * H + j], &cn, &hn);
+        c_out[(size_t)n * H + j] = cn;
+        h_out[(size_t)n * H + j] = hn;
+      }
     }
   }
 }
@@ -364,8 +609,74 @@ cudaError_t seq_plan(int N, int In, int H, SeqPlan* plan) {
   return err;
 }
 
-size_t step_smem_bytes(int In, int H) {
-  return (size_t)(In + H) * kStepRows * sizeof(float);
+// The step kernel's launch: the kernel (tile and copy width), grid, threads,
+// dynamic shared memory, and the tile's shape and the card's SMs to report.
+using StepKernel = void (*)(const float*, const float*, const float*,
+                            const float*, const float*, const float*, float*,
+                            float*, int, int, int);
+struct StepLaunch {
+  StepKernel kernel;
+  dim3 grid;
+  int threads, rows, rows_per_thread, stages, bk, sms;
+  size_t smem;
+};
+
+template <class T>
+StepLaunch step_launch(bool vec, int N, int H) {
+  StepLaunch l;
+  l.kernel = vec ? &lstm_step_kernel<T, true> : &lstm_step_kernel<T, false>;
+  l.grid = dim3((N + T::kRows - 1) / T::kRows,
+                (H + T::kUnits - 1) / T::kUnits);
+  l.threads = T::kThreads;
+  l.rows = T::kRows;
+  l.rows_per_thread = T::kRT;
+  l.stages = T::kStages;
+  l.bk = T::kBK;
+  l.smem = T::kSmem;
+  return l;
+}
+
+// 16-byte copies need In and H multiples of 4 and the four operands the
+// copies read 16-byte aligned.
+bool step_vec(const void* x, const void* h, const void* wx, const void* wh,
+              int In, int H) {
+  const uintptr_t any = (uintptr_t)x | (uintptr_t)h | (uintptr_t)wx |
+                        (uintptr_t)wh;
+  return In % 4 == 0 && H % 4 == 0 && any % 16 == 0;
+}
+
+// Per device, its SMs and the kernels whose dynamic shared memory has been
+// allowed: one query and one cudaFuncSetAttribute each, not one per launch.
+std::mutex step_mutex;
+std::map<int, int> step_sms;
+std::set<std::pair<int, StepKernel>> step_smem_allowed;
+
+// The launch at (N, H) on the current device.  The wide tile when its grid
+// has more CTAs than the card has SMs; else the narrow tile, twice the CTAs,
+// so that SMs hold two CTAs and their warps hide each other's stalls (at
+// N=500, H=512: 256 CTAs of 32 rows, not 128 of 64).
+cudaError_t step_plan(int N, int H, bool vec, StepLaunch* l) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(step_mutex);
+  auto it = step_sms.find(dev);
+  if (it == step_sms.end()) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    it = step_sms.emplace(dev, sms).first;
+  }
+  *l = step_launch<StepWide>(vec, N, H);
+  if ((int)(l->grid.x * l->grid.y) <= it->second)
+    *l = step_launch<StepNarrow>(vec, N, H);
+  l->sms = it->second;
+  if (step_smem_allowed.count({dev, l->kernel})) return cudaSuccess;
+  err = cudaFuncSetAttribute(l->kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)l->smem);
+  if (err == cudaSuccess) step_smem_allowed.insert({dev, l->kernel});
+  return err;
 }
 
 }  // namespace
@@ -410,16 +721,37 @@ int nvqa_lstm_step_forward(const float* x, const float* h, const float* c,
                            const float* wx, const float* wh, const float* b,
                            float* c_out, float* h_out, int N, int In, int H,
                            void* stream) {
-  const size_t smem = step_smem_bytes(In, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_step_kernel<kStepRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  StepLaunch l;
+  const cudaError_t err =
+      step_plan(N, H, step_vec(x, h, wx, wh, In, H), &l);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kStepRows - 1) / kStepRows,
-                  (H + kStepUnits - 1) / kStepUnits);
-  lstm_step_kernel<kStepRows><<<grid, kStepUnits, smem, (cudaStream_t)stream>>>(
+  l.kernel<<<l.grid, l.threads, l.smem, (cudaStream_t)stream>>>(
       x, h, c, wx, wh, b, c_out, h_out, N, In, H);
   return (int)cudaGetLastError();
+}
+
+// The step kernel's launch at (N, In, H) for operands the PyTorch allocator
+// placed (16-byte aligned), launching nothing: info[0..10] = rows and hidden
+// units per CTA, batch rows per thread, CTAs in the grid, threads per CTA,
+// dynamic shared memory per CTA in bytes, pipeline stages, k per stage, the
+// CTAs an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// the card's SMs, and the bytes of each cp.async copy.
+int nvqa_lstm_step_launch_info(int N, int In, int H, int* info) {
+  const bool vec = In % 4 == 0 && H % 4 == 0;
+  StepLaunch l;
+  int per_sm = 0;
+  cudaError_t err = step_plan(N, H, vec, &l);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l.kernel,
+                                                        l.threads, l.smem);
+  if (err != cudaSuccess) return (int)err;
+  const int out[11] = {l.rows,      32,       l.rows_per_thread,
+                       (int)(l.grid.x * l.grid.y),
+                       l.threads,   (int)l.smem, l.stages,
+                       l.bk,        per_sm,   l.sms,
+                       vec ? 16 : 4};
+  for (int i = 0; i < 11; ++i) info[i] = out[i];
+  return 0;
 }
 
 }  // extern "C"

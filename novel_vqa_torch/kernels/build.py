@@ -35,6 +35,7 @@ ENTRY_POINTS = {
     "nvqa_lstm_seq_forward": [P] * 8 + [I] * 4 + [P],
     "nvqa_lstm_seq_launch_info": [I] * 3 + [P],
     "nvqa_lstm_step_forward": [P] * 8 + [I] * 3 + [P],
+    "nvqa_lstm_step_launch_info": [I] * 3 + [P],
     "nvqa_lstm_seq2_forward": [P] * 15 + [I] * 4 + [P],
     "nvqa_lstm_seq2_launch_info": [I] * 3 + [P],
 }

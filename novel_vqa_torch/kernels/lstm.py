@@ -18,6 +18,16 @@ whose clusters the card holds at once, so 500 rows run in one wave on
 step on which no row of its tile is active.  :func:`lstm_seq_launch_info`
 reports its launch at a shape, with the clusters the card holds at once.
 
+The step kernel is bound by its fp32 FMA products too.  A CTA computes a
+tile of batch rows by 32 hidden units, all four gates of each, so the cell
+runs in its epilogue; inputs and weights pass through shared memory in a
+ring of ``cp.async`` stages, and each thread keeps its rows x 2 units x 4
+gates in registers.  The launch takes 64-row tiles (8 rows per thread),
+or 32-row tiles (4 per thread) when the 64-row grid would not give the
+card's SMs more than one CTA each: at N=500, H=512, 256 CTAs of 32 rows in
+one wave.  :func:`lstm_step_launch_info` reports its launch at a shape,
+with the CTAs an SM holds at once.
+
 The kernels compute forwards only: their outputs carry no ``grad_fn``.  So
 on a CUDA tensor each wrapper raises when grad mode is on and an input
 requires grad, rather than hand a training graph outputs that would cut it
@@ -151,20 +161,25 @@ lstm_seq.launches = 0
 
 LAUNCH_INFO_KEYS = ("cluster_ctas", "rows_per_cluster", "ctas", "max_active_clusters",
                     "threads", "smem_bytes")
+STEP_LAUNCH_INFO_KEYS = ("rows_per_cta", "units_per_cta", "rows_per_thread", "ctas", "threads",
+                         "smem_bytes", "stages", "k_per_stage", "ctas_per_sm", "sms", "copy_bytes")
 
 
-def launch_info(lib, kernel: str, N: int, In: int, H: int, device=None) -> dict:
-    """A cluster kernel's launch at (N, In, H) on a card, from the C entry
-    point ``nvqa_<kernel>_launch_info`` of ``lib``, launching nothing: CTAs
-    per cluster, rows per cluster, CTAs in the grid, the clusters the card
-    can hold at once (``cudaOccupancyMaxActiveClusters``), threads and
-    dynamic shared memory per CTA; ``clusters`` is the grid's count."""
-    info = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
+def launch_info(lib, kernel: str, N: int, In: int, H: int, device=None,
+                keys=LAUNCH_INFO_KEYS) -> dict:
+    """A kernel's launch at (N, In, H) on a card, from the C entry point
+    ``nvqa_<kernel>_launch_info`` of ``lib``, launching nothing, as a dict
+    of ``keys``.  For the cluster kernels (the default keys): CTAs per
+    cluster, rows per cluster, CTAs in the grid, the clusters the card can
+    hold at once (``cudaOccupancyMaxActiveClusters``), threads and dynamic
+    shared memory per CTA; ``clusters`` is the grid's count."""
+    info = (ctypes.c_int * len(keys))()
     with torch.cuda.device(device):
         err = getattr(lib, f"nvqa_{kernel}_launch_info")(N, In, H, ctypes.addressof(info))
     raise_on(lib, err, f"{kernel} launch info (N={N}, In={In}, H={H})")
-    out = dict(zip(LAUNCH_INFO_KEYS, info))
-    out["clusters"] = out["ctas"] // out["cluster_ctas"]
+    out = dict(zip(keys, info))
+    if "cluster_ctas" in out:
+        out["clusters"] = out["ctas"] // out["cluster_ctas"]
     return out
 
 
@@ -206,3 +221,14 @@ def lstm_step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 lstm_step.launches = 0
+
+
+def lstm_step_launch_info(N: int, In: int, H: int, device=None) -> dict:
+    """The step kernel's launch at (N, In, H) for operands from PyTorch's
+    allocator, launching nothing: rows and hidden units per CTA, batch rows
+    per thread, CTAs in the grid, threads, dynamic shared memory, pipeline
+    stages and k per stage, the CTAs an SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the card's SMs and
+    the bytes of each ``cp.async`` copy (16, or 4 when In or H is not a
+    multiple of 4)."""
+    return launch_info(library(SOURCE), "lstm_step", N, In, H, device, STEP_LAUNCH_INFO_KEYS)

@@ -87,14 +87,18 @@ def test_encode_matches_pallas_encode_and_jax_encode():
         np.testing.assert_allclose(h_t.numpy(), np.asarray(ref_h), **TOL)
 
 
-@pytest.mark.parametrize("N", [20, 13])
-def test_step_matches_pallas_step_interpret(N):
-    # N=13 is not a multiple of the Pallas tile (its padding path)
-    (layer,) = _layers([(16, 32)], seed=0)
+@pytest.mark.parametrize("In,H", [(16, 32), (24, 40), (13, 37)])
+@pytest.mark.parametrize("N", [20, 13, 65])
+def test_step_matches_pallas_step_interpret(N, In, H):
+    # At the step kernel's tile edges: N=13 and 20 are not multiples of the
+    # Pallas tile (its padding path), N=65 is one row past the CUDA kernel's
+    # 64-row tile; H=40 and 37 leave a partial 32-unit tile, In=24 and 13 a
+    # partial 16-k stage, and In=13, H=37 rows that are not 16-byte aligned.
+    (layer,) = _layers([(In, H)], seed=0)
     rs = np.random.RandomState(N)
-    x = rs.randn(N, 16).astype(np.float32)
-    c = rs.randn(N, 32).astype(np.float32)
-    h = rs.randn(N, 32).astype(np.float32)
+    x = rs.randn(N, In).astype(np.float32)
+    c = rs.randn(N, H).astype(np.float32)
+    h = rs.randn(N, H).astype(np.float32)
     c_j, h_j = pallas_lstm_step(layer, jnp.asarray(x), jnp.asarray(c), jnp.asarray(h), tile_n=8, interpret=True)
     b = _t(layer["bx"] + layer["bh"])
     c_plain, h_plain = K.lstm_step_plain(_t(x), _t(h), _t(c), _t(layer["wx"]), _t(layer["wh"]), b)
