@@ -57,7 +57,29 @@ Phases, each printing one JSON line:
      train-step time per route (CUDA events) and its device time by kernel
      (torch.profiler); ``train_steps_scan`` of 10 steps makes no host sync
      (``torch.cuda.set_sync_debug_mode("error")``); then the eval CLI on
-     the trained ``lstm.h5``.
+     the trained ``lstm.h5``;
+  9. decoders: whether this machine has PIL, and whether the native
+     decoder (native/imagepipe.cpp) builds here, or why not;
+ 10. extract: VGG-16 fc7 at 224x224, batch 32, random seeded weights.
+     (a) ``run_pipelined_extraction`` on EXTRACT_BATCHES predecoded uint8
+     batches, float32 (TF32 off) and bfloat16: images/s (CUDA events around
+     the loop, median of three runs after a warm-up), the forward's time
+     per batch and its bound (FLOPs from the layer shapes over the peak for
+     the type), device time by stage (torch.profiler); (b) the fc7 of the
+     first two images (the second a missing file) against the port's fp32
+     forward on the CPU, within EXTRACT_REL_TOL; every fc7 finite and >= 0;
+     the missing row's prepro is the quirk image; (c) with a decoder, the
+     extraction CLI over synthetic PNGs (written with zlib and struct),
+     vgg16 and then vggembed + vgg19: the stores' shapes, identical rows for
+     identical files, vgg16's features against (a)'s forward on the same
+     decoded pixels, the decoder, the CLI's images/s, the host decode's
+     images/s alone; without a decoder a line says why (c) did not run;
+ 11. chain: images to accuracy, extraction CLI (or, without a decoder,
+     (a)'s features) -> eval CLI at the reference width -> matching
+     annotations and questions -> ``eval.drivers`` on the OpenEnded and
+     MultipleChoice JSONs, whose accuracies (overall, per answer type, the
+     novel subset) must equal a count made here.
+Phases 9-11 print the card's name and power limit on their lines.
 Then a line with nvidia-smi's name and power limit, one JSON line listing
 every kernel, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without a card it exits non-zero at
@@ -78,10 +100,12 @@ import contextlib
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 from unittest import mock
 
@@ -128,6 +152,15 @@ N_TEST, N_IMG, N_MC = 4950, 2000, 18
 # the train slice's synthetic split and run length
 N_TRAIN, N_VAL, N_TEST_TRAIN = 5000, 1000, 1000
 TRAIN_ITERS = 20
+# the extract phase: VGG-16 fc7 at the reference extractor's input and
+# ExtractConfig's default batch; fc7 held to the CPU fp32 forward within
+# these relative errors (bf16: the JAX package's stated bound,
+# extract_features.py:61-65)
+EXTRACT_BATCH, EXTRACT_SIZE, EXTRACT_BATCHES = 32, 224, 16
+EXTRACT_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+EXTRACT_CLI_IMAGES, EXTRACT_CLI_COPIES = 80, 8  # three batches, the last ragged
+# the chained phase: images -> fc7 store -> eval -> accuracy
+CHAIN_IMAGES, CHAIN_QUESTIONS = 200, 500
 
 
 def emit(obj) -> None:
@@ -581,11 +614,13 @@ def run_autograd_refusal(K, K2, dev):
 # phase 5: the slice at the reference width
 # --------------------------------------------------------------------------
 
-def write_split(tmp: str, rs: np.random.RandomState, sizes) -> None:
+def write_split(tmp: str, rs: np.random.RandomState, sizes, n_img: int = N_IMG,
+                empty_mc_row: bool = True) -> None:
     """Synthetic splits in the data_prepro.{h5,json} / data_img.h5 schema
     (000_prepro_vqa.py:273-293); ``sizes`` maps each split to its number
-    of questions.  Train and val carry answers, test MC choices; the
-    splits share one image table."""
+    of questions.  Train and val carry answers, test MC choices (with
+    ``empty_mc_row``, row 5 has none); the splits share one table of
+    ``n_img`` images."""
     from novel_vqa_torch.core.h5 import write_h5
 
     ques_h5, img_h5 = {}, {}
@@ -598,25 +633,26 @@ def write_split(tmp: str, rs: np.random.RandomState, sizes) -> None:
             f"ques_{split}": ques,
             f"ques_length_{split}": lengths,
             f"question_id_{split}": np.arange(n_q, dtype=np.uint32) * 10 + 7,
-            f"img_pos_{split}": rs.randint(1, N_IMG + 1, size=n_q).astype(np.uint32),
+            f"img_pos_{split}": rs.randint(1, n_img + 1, size=n_q).astype(np.uint32),
         })
         if split == "test":
             mc = np.stack([rs.choice(O, N_MC, replace=False) + 1 for _ in range(n_q)]).astype(np.uint32)
             mc[::97, N_MC // 2:] = 0  # some rows with fewer choices
-            mc[5] = 0  # a row with none: MC falls back to the OE answer
+            if empty_mc_row:
+                mc[5] = 0  # a row with none: MC falls back to the OE answer
             ques_h5["MC_ans_test"] = mc
         else:
             key = "answers" if split == "train" else f"answers_{split}"
             ques_h5[key] = rs.randint(1, O + 1, size=n_q).astype(np.uint32)
     write_h5(os.path.join(tmp, "data_prepro.h5"), ques_h5)
     # fc7 features are post-ReLU: non-negative
-    fc7 = np.maximum(rs.randn(N_IMG, F), 0).astype(np.float32)
+    fc7 = np.maximum(rs.randn(n_img, F), 0).astype(np.float32)
     write_h5(os.path.join(tmp, "data_img.h5"), {f"images_{split}": fc7 for split in sizes})
     meta = {
         "ix_to_word": {str(i): f"w{i}" for i in range(1, V + 1)},
         "ix_to_ans": {str(i): f"a{i}" for i in range(1, O + 1)},
     }
-    meta.update({f"unique_img_{split}": [f"im{i}.jpg" for i in range(N_IMG)] for split in sizes})
+    meta.update({f"unique_img_{split}": [f"im{i}.png" for i in range(n_img)] for split in sizes})
     with open(os.path.join(tmp, "data_prepro.json"), "w") as f:
         json.dump(meta, f)
 
@@ -970,6 +1006,382 @@ def run_train_slice(K, K2, dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 9: VGG-16 fc7 extraction at full width
+# --------------------------------------------------------------------------
+
+def decoder_probe() -> dict:
+    """Which host decoders this machine has: PIL, and the native decoder
+    (built here from native/imagepipe.cpp, or why it could not be)."""
+    import importlib.util
+
+    from novel_vqa_torch.data import native_images
+
+    native = native_images.available()
+    return {"pil": importlib.util.find_spec("PIL") is not None, "native": native,
+            "native_reason": native_images.unavailable_reason()}
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """An 8-bit RGB PNG with the standard library alone."""
+    h, w, _ = rgb.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+    raw = b"".join(b"\0" + row.tobytes() for row in rgb)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_images(folder: str, n: int, rs: np.random.RandomState, copies: int = 0):
+    """``n`` PNGs of a few sizes around 240x320 (so every decode resizes);
+    the last ``copies`` are byte copies of the first ones.  Returns the
+    file names."""
+    os.makedirs(folder, exist_ok=True)
+    names = [f"im{i}.png" for i in range(n)]
+    for i, name in enumerate(names):
+        if i >= n - copies:
+            with open(os.path.join(folder, names[i - (n - copies)]), "rb") as src:
+                blob = src.read()
+            with open(os.path.join(folder, name), "wb") as dst:
+                dst.write(blob)
+        else:
+            write_png(os.path.join(folder, name),
+                      rs.randint(0, 256, (240 + 8 * (i % 3), 320, 3), dtype=np.uint8))
+    return names
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| over max |ref|, per the JAX package's vision parity
+    tests (tests/test_vision_torch_parity.py)."""
+    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def stage_profile(fn, top: int = 6) -> dict:
+    """Device ms by stage over one call of the extraction forward, from
+    torch.profiler: each ``record_function`` range of the forward
+    (extract.prepro, vgg.block1..5, vgg.fc6, vgg.fc7) sums the device time
+    of the kernels launched inside it; beside it the total kernel time (the
+    ranges' own device-side annotations left out, which would count each
+    kernel twice) and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    stages = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+              if e.key.startswith(("extract.", "vgg.")) and e.device_type == torch.autograd.DeviceType.CPU}
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+            ms, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    total = sum(ms for ms, _ in by_name.values())
+    return {"device_ms_total": total, "stages_ms": stages,
+            "stages_share": {k: v / total for k, v in stages.items()} if total else {},
+            "top": [{"name": n[:80], "ms": ms, "count": c}
+                    for n, (ms, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]]}
+
+
+def extract_batches(rs: np.random.RandomState, n_batches: int, missing_row: int):
+    """``n_batches`` predecoded (u8, missing, real) host batches of random
+    pixels at the full width; one row of the first batch is a missing file."""
+    out = []
+    for bi in range(n_batches):
+        u8 = rs.randint(0, 256, (EXTRACT_BATCH, EXTRACT_SIZE, EXTRACT_SIZE, 3), dtype=np.uint8)
+        missing = np.zeros(EXTRACT_BATCH, bool)
+        if bi == 0:
+            missing[missing_row] = True
+        out.append((u8, missing, EXTRACT_BATCH))
+    return out
+
+
+def run_extract(K, K2, dev, smi: str, probe: dict):
+    """(a) the pipelined loop on predecoded batches, both routes: images/s,
+    device time by stage, the bound; (b) the card's fc7 against the port's
+    CPU fp32 forward, the missing-row quirk; (c) the CLI end to end with the
+    decoder this machine has.  Returns (phase output, the float32 route's
+    features)."""
+    from novel_vqa_torch.core.tree import tree_map
+    from novel_vqa_torch.data import images as I
+    from novel_vqa_torch.models.vision import vgg
+    from novel_vqa_torch.models.vision.layers import bf16_storage_cast
+    from novel_vqa_torch.train import extract_features as X
+
+    t0 = time.perf_counter()
+    f32, size, _, ndims = X.build_model("vgg16", "", "fc7", SEED, image_size=EXTRACT_SIZE, device=dev)
+    forwards = {"float32": f32, "bfloat16": X.Extractor(
+        bf16_storage_cast(f32.params), f32.cfg, f32.tap, f32.prepro, ndims, dev)}
+    batches = extract_batches(np.random.RandomState(SEED + 20), EXTRACT_BATCHES, missing_row=1)
+    n = EXTRACT_BATCH * EXTRACT_BATCHES
+    out = {"card": smi, "model": "vgg16", "tap": "fc7", "image_size": size,
+           "batch": EXTRACT_BATCH, "batches": EXTRACT_BATCHES, "setup_s": time.perf_counter() - t0,
+           "routes": {}}
+    flops = vgg.forward_flops(f32.cfg, "fc7") * EXTRACT_BATCH
+
+    # (b)'s reference: the port's own forward on the CPU, same weights,
+    # the first two images (the second one missing)
+    cpu = X.Extractor(tree_map(lambda t: t.cpu(), f32.params), f32.cfg, "fc7", f32.prepro, ndims,
+                      torch.device("cpu"))
+    u8_0, miss_0 = (torch.from_numpy(a[:2]) for a in batches[0][:2])
+    ref = cpu(u8_0, miss_0)
+
+    # the missing-row quirk through the card's prepro: the constants exactly
+    x0 = I.vgg_device_prepro(u8_0.to(dev), miss_0.to(dev))
+    quirk = torch.tensor(I.VGG_MISSING_BGR, device=dev).view(3, 1, 1).expand(3, size, size)
+    if not torch.equal(x0[1], quirk) or not torch.equal(x0[0].cpu(), I.vgg_device_prepro(u8_0, miss_0)[0]):
+        raise AssertionError("vgg_device_prepro on the card: the missing row or a decoded row differs")
+
+    feats = {}
+    for route, fwd in forwards.items():
+        K.lstm_seq.launches = K.lstm_step.launches = K2.lstm_seq2.launches = 0
+        runs = []
+        for _ in range(4):  # the first warms cuDNN's heuristics and the allocator
+            got = np.empty((n, ndims), np.float32)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            X.run_pipelined_extraction([(fwd, size, False, ndims)], [""] * n, EXTRACT_BATCH, 1,
+                                       feats=got, depth=4, predecoded=batches)
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end))
+        launches = {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches,
+                    "lstm_seq2": K2.lstm_seq2.launches}
+        feats[route] = got
+        got_t = torch.from_numpy(got)
+        if not bool(torch.isfinite(got_t).all()) or float(got_t.min()) < 0:
+            raise AssertionError(f"extract {route}: fc7 not finite or negative")
+        errs_ = [rel_err(got_t[r], ref[r]) for r in range(2)]
+        tol = EXTRACT_REL_TOL[route]
+        if not max(errs_) <= tol:
+            raise AssertionError(f"extract {route}: fc7 of the first images off the CPU forward by {errs_} > {tol}")
+        loop_ms = statistics.median(runs[1:])
+        d_u8, d_miss = (torch.from_numpy(a).to(dev) for a in batches[1][:2])
+        forward_ms = time_ms(lambda: fwd(d_u8, d_miss), reps=10, warmup=2)
+        weight_bytes = sum(t.numel() * t.element_size() for t in
+                           [c[k] for c in fwd.params["conv"] for k in "wb"]
+                           + [fwd.params[b][k] for b in ("fc6", "fc7") for k in "wb"])
+        bound_ms, bound_by = bound(flops, d_u8.numel() + weight_bytes + 4 * EXTRACT_BATCH * ndims,
+                                   FP32_FLOPS if route == "float32" else BF16_FLOPS)
+        prof = stage_profile(lambda: fwd(d_u8, d_miss))
+        out["routes"][route] = {
+            "images_per_s": n / (loop_ms / 1e3), "loop_ms": loop_ms, "loop_runs_ms": runs,
+            "ms_per_batch": loop_ms / EXTRACT_BATCHES, "forward_ms_per_batch": forward_ms,
+            "bound_ms_per_batch": bound_ms, "bound_by": bound_by, "gflop_per_batch": flops / 1e9,
+            "rel_err_vs_cpu_fp32": errs_, "tol": tol, "launches": launches, "profile": prof,
+            "device_idle_share": 1 - prof["device_ms_total"] / forward_ms,
+        }
+    out["cpu_reference"] = "the port's fp32 forward on the CPU, images 0-1 (1 missing), rel per row"
+    out["cli"] = run_extract_cli(dev, probe, forwards["float32"])
+    return out, feats["float32"]
+
+
+def run_extract_cli(dev, probe: dict, f32) -> dict:
+    """(c): the extraction CLI over EXTRACT_CLI_IMAGES synthetic PNGs, vgg16
+    and then vggembed + vgg19; the stores read back through core/h5.py."""
+    from novel_vqa_torch.core.h5 import H5Reader
+    from novel_vqa_torch.data import images as I
+    from novel_vqa_torch.train import extract_features as X
+
+    if not (probe["native"] or probe["pil"]):
+        return {"ran": False, "reason": f"no decoder on this machine: no PIL, and the native "
+                                        f"decoder did not build ({probe['native_reason']})"}
+    out = {"ran": True, "decoder": I.default_decoder(), "images": EXTRACT_CLI_IMAGES,
+           "identical_copies": EXTRACT_CLI_COPIES}
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "img")
+        names = write_images(folder, EXTRACT_CLI_IMAGES, np.random.RandomState(SEED + 21),
+                             copies=EXTRACT_CLI_COPIES)
+        with open(os.path.join(tmp, "data_prepro.json"), "w") as f:
+            json.dump({"unique_img_test": names}, f)
+        base = ["--input_json", os.path.join(tmp, "data_prepro.json"), "--image_root", folder,
+                "--seed", str(SEED), "--image_size", str(EXTRACT_SIZE), "--device", dev.type]
+        for key, extra, width in (("vgg16", ["--model", "vgg16"], 4096),
+                                  ("vggembed+vgg19", ["--model", "vggembed", "--model2", "vgg19"], 4800 + 4096)):
+            store = os.path.join(tmp, f"{key}.h5")
+            t0 = time.perf_counter()
+            X.main(base + extra + ["--out_name", store])
+            wall = time.perf_counter() - t0
+            with H5Reader(store) as h5:
+                keys, feats = h5.keys(), h5["images_test"]
+            if keys != ["images_test"] or feats.shape != (EXTRACT_CLI_IMAGES, width) or feats.dtype != np.float32:
+                raise AssertionError(f"CLI {key}: store {keys} {feats.shape} {feats.dtype}")
+            if not np.isfinite(feats).all():
+                raise AssertionError(f"CLI {key}: non-finite features")
+            first = EXTRACT_CLI_IMAGES - EXTRACT_CLI_COPIES
+            if not np.array_equal(feats[first:], feats[:EXTRACT_CLI_COPIES]):
+                raise AssertionError(f"CLI {key}: identical images gave different rows")
+            out[key] = {"shape": list(feats.shape), "wall_s": wall,
+                        "images_per_s_wall": EXTRACT_CLI_IMAGES / wall}
+            if key == "vgg16":
+                # (a)'s forward on the same decoded pixels; the host decode
+                # alone, and the CLI's loop (decode and device) without the
+                # CLI's weight init and store write
+                paths = [os.path.join(folder, n_) for n_ in names]
+                pool = I.DecodePool(EXTRACT_SIZE)
+                try:
+                    t0 = time.perf_counter()
+                    decoded = list(pool.iter_batches(paths, EXTRACT_BATCH))
+                    decode_s = time.perf_counter() - t0
+                finally:
+                    pool.close()
+                rows = [f32(torch.from_numpy(u8).to(dev), torch.from_numpy(m).to(dev))[:real].cpu()
+                        for u8, m, real in decoded]
+                err = rel_err(torch.from_numpy(feats), torch.cat(rows))
+                if not err <= EXTRACT_REL_TOL["float32"]:
+                    raise AssertionError(f"CLI vgg16 features off (a)'s forward by {err}")
+                _, loop_s = X.run_pipelined_extraction([(f32, EXTRACT_SIZE, False, 4096)], paths,
+                                                       EXTRACT_BATCH, 8, depth=4)
+                out[key].update(rel_err_vs_forward=err,
+                                decode_only_images_per_s=EXTRACT_CLI_IMAGES / decode_s,
+                                loop_images_per_s=EXTRACT_CLI_IMAGES / loop_s)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 10: images to accuracy
+# --------------------------------------------------------------------------
+
+def write_annotations(tmp: str, rs: np.random.RandomState, qids, img_pos, results, mc_choices, ix_to_ans):
+    """Annotations and questions that match the split: each question's ten
+    human answers hold its OpenEnded answer k1 times and its MultipleChoice
+    answer k2 times (k1 + k2 <= 10, at random) and draws from the answer
+    table otherwise; answer and question types drawn at random.  Returns
+    the file paths and the annotations."""
+    oe, mc = ({r["question_id"]: r["answer"] for r in results[t]} for t in ("OpenEnded", "MultipleChoice"))
+    answers = list(ix_to_ans.values())
+    anns = []
+    for q, img in zip(qids, img_pos):
+        k1 = rs.randint(0, 11)
+        k2 = rs.randint(0, 11 - k1)
+        given = [oe[q]] * k1 + [mc[q]] * k2 + [answers[j] for j in rs.randint(0, len(answers), 10 - k1 - k2)]
+        rs.shuffle(given)
+        anns.append({"question_id": q, "image_id": img, "multiple_choice_answer": given[0],
+                     "question_type": ["what is", "how many", "is the"][rs.randint(3)],
+                     "answer_type": ["other", "number", "yes/no"][rs.randint(3)],
+                     "answers": [{"answer": a, "answer_confidence": "yes", "answer_id": i + 1}
+                                 for i, a in enumerate(given)]})
+    head = {"info": {}, "data_type": "mscoco", "data_subtype": "val2014", "license": {}}
+    paths = {"ann": os.path.join(tmp, "ann.json")}
+    with open(paths["ann"], "w") as f:
+        json.dump({**head, "annotations": anns}, f)
+    for task, task_type in (("OpenEnded", "Open-Ended"), ("MultipleChoice", "Multiple Choice")):
+        ques = [{"question_id": q, "image_id": img, "question": "what is this?"}
+                for q, img in zip(qids, img_pos)]
+        if task == "MultipleChoice":
+            for entry, row in zip(ques, mc_choices):
+                entry["multiple_choices"] = [ix_to_ans[str(int(c))] for c in row if c]
+        paths[task] = os.path.join(tmp, f"{task}_questions.json")
+        with open(paths[task], "w") as f:
+            json.dump({**head, "task_type": task_type, "questions": ques}, f)
+    return paths, anns
+
+
+def direct_accuracy(anns, res, qids=None) -> dict:
+    """The VQA accuracy counted here, independently of eval/: per question
+    the mean over its ten answers of min(1, matches among the other nine /
+    3), in percent, rounded to 2 places; overall and per answer type.  The
+    answers hold no punctuation, digits words or articles, so the
+    evaluator's normalisation leaves them as they are."""
+    pred = {r["question_id"]: r["answer"] for r in res}
+    by_q = {a["question_id"]: a for a in anns}
+    accs, by_type = [], {}
+    for q in (qids if qids is not None else [a["question_id"] for a in anns]):
+        given = [x["answer"] for x in by_q[q]["answers"]]
+        acc = sum(min(1.0, float(sum(g == pred[q] for j, g in enumerate(given) if j != i)) / 3)
+                  for i in range(len(given))) / len(given)
+        accs.append(acc)
+        by_type.setdefault(by_q[q]["answer_type"], []).append(acc)
+    out = {"overall": round(100 * float(sum(accs)) / len(accs), 2)}
+    for t in ("other", "number", "yes/no"):
+        v = by_type.get(t)
+        out[t] = round(100 * float(sum(v)) / len(v), 2) if v else None
+    return out
+
+
+def run_chain(K, dev, smi: str, probe: dict, stored_feats: np.ndarray) -> dict:
+    """Images to accuracy: extract fc7 for CHAIN_IMAGES synthetic images with
+    the CLI (or, with no decoder, take (a)'s features), eval a
+    CHAIN_QUESTIONS split over them with eval_vqa_arch1 at the reference
+    width, write matching annotations and questions, run eval.drivers on
+    both result files and hold its accuracies to a direct count."""
+    from novel_vqa_torch.core.checkpoint import arch1_to_flat, save_flat_h5
+    from novel_vqa_torch.core.convert import arch1_params_to_numpy
+    from novel_vqa_torch.core.h5 import H5Reader, write_h5
+    from novel_vqa_torch.eval import drivers
+    from novel_vqa_torch.models.vqa import arch1
+    from novel_vqa_torch.train import eval_vqa_arch1
+    from novel_vqa_torch.train import extract_features as X
+
+    out = {"card": smi, "images": CHAIN_IMAGES, "questions": CHAIN_QUESTIONS}
+    rs = np.random.RandomState(SEED + 30)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_split(tmp, rs, {"test": CHAIN_QUESTIONS}, n_img=CHAIN_IMAGES, empty_mc_row=False)
+        store = os.path.join(tmp, "data_img.h5")
+        t0 = time.perf_counter()
+        if probe["native"] or probe["pil"]:
+            folder = os.path.join(tmp, "img")
+            write_images(folder, CHAIN_IMAGES, rs)
+            X.main(["--input_json", os.path.join(tmp, "data_prepro.json"), "--image_root", folder,
+                    "--out_name", store, "--seed", str(SEED), "--image_size", str(EXTRACT_SIZE),
+                    "--device", dev.type])
+            out["features"] = "extraction CLI"
+        else:
+            write_h5(store, {"images_test": stored_feats[:CHAIN_IMAGES]})
+            out["features"] = "the extract phase's float32 run (no decoder)"
+        out["extract_s"] = time.perf_counter() - t0
+        with H5Reader(store) as h5:
+            if h5["images_test"].shape != (CHAIN_IMAGES, F):
+                raise AssertionError(f"chain store {h5['images_test'].shape}")
+
+        cfg = ref_cfg()
+        params = arch1.init_params(cfg, torch.Generator().manual_seed(SEED + 31), device=dev)
+        model = os.path.join(tmp, "lstm.h5")
+        save_flat_h5(model, arch1_to_flat(arch1_params_to_numpy(params)))
+        res = os.path.join(tmp, "result")
+        K.lstm_seq.launches = K.lstm_step.launches = 0
+        eval_vqa_arch1.main(data_argv(tmp) + ["--model_path", model, "--out_path", res, "--device", dev.type])
+        torch.cuda.synchronize()
+        out["eval_launches"] = {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches}
+        if out["eval_launches"]["lstm_seq"] != L * -(-CHAIN_QUESTIONS // BATCH):
+            raise AssertionError(f"chain eval: {out['eval_launches']} launches")
+
+        with H5Reader(os.path.join(tmp, "data_prepro.h5")) as h5:
+            qids = [int(q) for q in h5["question_id_test"]]
+            img_pos = [int(p) for p in h5["img_pos_test"]]
+            mc_choices = h5["MC_ans_test"]
+        with open(os.path.join(tmp, "data_prepro.json")) as f:
+            ix_to_ans = json.load(f)["ix_to_ans"]
+        results = {}
+        for task in ("OpenEnded", "MultipleChoice"):
+            with open(os.path.join(res, f"{task}_mscoco_val2014_lstm_novel_new_2_results.json")) as f:
+                results[task] = json.load(f)
+        paths, anns = write_annotations(tmp, rs, qids, img_pos, results, mc_choices, ix_to_ans)
+        novel = qids[: CHAIN_QUESTIONS // 5]
+        with open(os.path.join(tmp, "ques_id_hist.json"), "w") as f:
+            json.dump({"0": novel}, f)
+        for task in ("OpenEnded", "MultipleChoice"):
+            acc_json = os.path.join(tmp, f"{task}_acc.json")
+            drivers.main(["--data_dir", tmp, "--task_type", task, "--ann_file", paths["ann"],
+                          "--ques_file", paths[task],
+                          "--res_file", os.path.join(res, f"{task}_mscoco_val2014_lstm_novel_new_2_results.json"),
+                          "--ques_id_hist", os.path.join(tmp, "ques_id_hist.json"), "--out_json", acc_json])
+            with open(acc_json) as f:
+                got = json.load(f)
+            want = direct_accuracy(anns, results[task])
+            want["novel"] = direct_accuracy(anns, results[task], novel)["overall"]
+            if {k: got[k] for k in want} != want:
+                raise AssertionError(f"chain {task}: eval.drivers {got} != the direct count {want}")
+            out[task] = {k: got[k] for k in want}
+        out["accuracies_equal_direct_count"] = True
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seq2-mutants", action="store_true",
@@ -1031,6 +1443,12 @@ def main(argv=None) -> int:
     emit({"phase": "route_agreement", **run_route_agreement(K2, dev)})
     train_out = run_train_slice(K, K2, dev)
     emit({"phase": "train_slice", **train_out})
+
+    probe = decoder_probe()
+    emit({"phase": "decoders", "card": smi, **probe})
+    extract_out, extract_feats = run_extract(K, K2, dev, smi, probe)
+    emit({"phase": "extract", **extract_out})
+    emit({"phase": "chain", **run_chain(K, dev, smi, probe, extract_feats)})
 
     def entry(name, rows, launches, replaces, source=SOURCE):
         timed = [r for r in rows if "kernel_ms" in r]

@@ -1,9 +1,12 @@
 """Weights carried between the JAX package and the port.
 
-Both packages keep params as nested dicts (lists for LSTM layers) in the
-same layout, weights stored (in, out), so the conversion is a leaf-wise
-copy: numpy arrays (``jax.device_get(params)`` on the JAX side) to float32
-tensors on a device, and back.
+Both packages keep params as nested dicts (lists for LSTM layers and VGG
+convs) in the same layout, linear weights stored (in, out), so the
+conversion is a leaf-wise copy: numpy arrays (``jax.device_get(params)`` on
+the JAX side, or a ``.npz`` read with ``core.checkpoint.load_npz`` /
+``unflatten_like``) to float32 tensors on a device, and back.  The one
+change of layout: VGG conv weights are HWIO in the JAX package and OIHW in
+the port, transposed here once, at load.
 """
 
 from __future__ import annotations
@@ -48,3 +51,21 @@ def lstm_params_to_numpy(
     layers: Sequence[Dict[str, torch.Tensor]]
 ) -> List[Dict[str, np.ndarray]]:
     return tree_map(_to_numpy, list(layers))
+
+
+def vgg_params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """JAX VGG params (HWIO convs, (in, out) linears) as numpy arrays -> the
+    port's tree of float32 tensors on ``device`` (OIHW convs)."""
+    to_t = _to_tensor(device)
+    out = {k: tree_map(to_t, v) for k, v in tree.items() if k != "conv"}
+    out["conv"] = [{"w": to_t(np.transpose(c["w"], (3, 2, 0, 1))), "b": to_t(c["b"])}  # HWIO -> OIHW
+                   for c in tree["conv"]]
+    return out
+
+
+def vgg_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`vgg_params_from_numpy`: HWIO convs, float32."""
+    out = {k: tree_map(_to_numpy, v) for k, v in params.items() if k != "conv"}
+    out["conv"] = [{"w": np.ascontiguousarray(np.transpose(_to_numpy(c["w"]), (2, 3, 1, 0))),
+                    "b": _to_numpy(c["b"])} for c in params["conv"]]
+    return out

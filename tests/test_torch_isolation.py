@@ -40,15 +40,21 @@ def test_no_jax_imports(path):
 def test_port_imports_without_nvcc_jax_or_card(tmp_path):
     """In a fresh interpreter with no nvcc on PATH and no card: import every
     module of the port, run the seq wrapper on CPU tensors (its plain
-    version), and check that neither JAX nor the JAX package was loaded
-    and that nothing was built."""
+    version) and the VGG prepro, and check that neither JAX nor the JAX
+    package was loaded and that nothing was built (neither a kernel nor
+    the native decoder)."""
     code = (
         "import sys, torch\n"
         "import novel_vqa_torch.train.eval_vqa_arch1\n"
+        "import novel_vqa_torch.train.extract_features, novel_vqa_torch.train.import_caffe\n"
+        "import novel_vqa_torch.eval.drivers, novel_vqa_torch.eval.demo\n"
+        "from novel_vqa_torch.data import images, native_images\n"
         "from novel_vqa_torch.kernels import build, lstm\n"
         "xs = torch.zeros(3, 2, 4); m = torch.ones(3, 2)\n"
         "lstm.lstm_seq(xs, m, torch.zeros(4, 8), torch.zeros(2, 8), torch.zeros(8))\n"
+        "images.vgg_device_prepro(torch.zeros(1, 4, 4, 3, dtype=torch.uint8), torch.zeros(1, dtype=torch.bool))\n"
         "assert build.library.cache_info().currsize == 0\n"
+        "assert not native_images._state  # the decoder is built at first use only\n"
         "assert lstm.lstm_seq.launches == 0\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
