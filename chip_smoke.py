@@ -78,8 +78,33 @@ Phases, each printing one JSON line:
      (a)'s features) -> eval CLI at the reference width -> matching
      annotations and questions -> ``eval.drivers`` on the OpenEnded and
      MultipleChoice JSONs, whose accuracies (overall, per answer type, the
-     novel subset) must equal a count made here.
-Phases 9-11 print the card's name and power limit on their lines.
+     novel subset) must equal a count made here;
+ 12. ae: the text autoencoder at the reference width (text_nostart, vocab
+     20,000, E = H = 512, one layer, T=16, batch 1000, adam) on a synthetic
+     corpus of 20,000/2,000 sentences written through the port's h5 writer
+     (``labels/*`` and ``label_length/*`` groups): ``train_text_ae`` for 20
+     iterations at ``--steps_per_dispatch`` 1 and 10 with greedy samples and
+     language eval, every logged loss finite, the step kernel's launches in
+     validation equal to the count its loop implies (ae_evals x
+     ae_eval_batches x 66); the greedy tokens of a val batch against the
+     plain step (a differing token only at a tie, AE_TIE) and its fused NLL
+     within 1e-5; the train step's ms (CUDA events, median of 10), its
+     sentences/s (``text_ae_train_throughput``), device time by kernel and
+     peak memory; ``train_steps_scan`` of 10 without a host sync; a val
+     batch's ms; then ``convert_ae`` (its arrays equal the checkpoint's) and
+     ``train_vqa_arch1 --init_from`` the converted file for 2 iterations;
+ 13. arch2: arch2 at the reference width (vocab 12782, E = H = 512, one
+     layer, 4096-d fc7, 1000 answers, T=16, batch 500, dropout 0.5): an
+     arch2 AE for 5 iterations on a corpus over the VQA vocabulary,
+     ``train_vqa_arch2 --init_from`` its npz for 20 iterations at
+     ``--steps_per_dispatch`` 1 and 10, ``eval_vqa_arch2`` on its lstm.h5 in
+     both store modes over a 4,950-question left-aligned split whose row 0
+     is a 16-token question and whose final short batch is shorter:
+     identical JSONs, 18 step launches per batch per mode, the first batch
+     within 1e-5 of a forward through the plain step; ms per batch and
+     questions/s (CUDA events around the split, median of 5), device time
+     by kernel, the idle share; the train step's ms.
+Phases 9-13 print the card's name and power limit on their lines.
 Then a line with nvidia-smi's name and power limit, one JSON line listing
 every kernel, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without a card it exits non-zero at
@@ -161,6 +186,18 @@ EXTRACT_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 EXTRACT_CLI_IMAGES, EXTRACT_CLI_COPIES = 80, 8  # three batches, the last ragged
 # the chained phase: images -> fc7 store -> eval -> accuracy
 CHAIN_IMAGES, CHAIN_QUESTIONS = 200, 500
+# the ae phase: the text AE at the reference width (AETrainConfig's
+# defaults, 001_train_arch1_text_autoencoder.lua:22-59: E = H = 512, one
+# layer, batch 1000, adam) over a 20k-word vocabulary (bench.py:490-520);
+# its synthetic corpus and run length; a greedy token may differ from the
+# plain step's only where the plain top-2 logprobs are this close (a tie)
+AE_V, AE_E, AE_T, AE_BATCH = 20000, 512, 16, 1000
+AE_N_TRAIN, AE_N_VAL, AE_ITERS = 20000, 2000, 20
+AE_TIE = 1e-5
+# the arch2 phase: arch2 at the reference width (TrainConfig's defaults,
+# 003_train_vqa_arch2/002_train_baseline.lua:26-52: E = H = 512, one layer);
+# its AE's corpus and run length
+A2_E, A2_AE_SENTENCES, A2_AE_ITERS = 512, 5000, 5
 
 
 def emit(obj) -> None:
@@ -615,20 +652,26 @@ def run_autograd_refusal(K, K2, dev):
 # --------------------------------------------------------------------------
 
 def write_split(tmp: str, rs: np.random.RandomState, sizes, n_img: int = N_IMG,
-                empty_mc_row: bool = True) -> None:
+                empty_mc_row: bool = True, vocab: int = V, long_first: bool = False) -> None:
     """Synthetic splits in the data_prepro.{h5,json} / data_img.h5 schema
     (000_prepro_vqa.py:273-293); ``sizes`` maps each split to its number
-    of questions.  Train and val carry answers, test MC choices (with
-    ``empty_mc_row``, row 5 has none); the splits share one table of
-    ``n_img`` images."""
+    of questions, over ``vocab`` words.  Train and val carry answers, test
+    MC choices (with ``empty_mc_row``, row 5 has none); the splits share one
+    table of ``n_img`` images.  With ``long_first`` the test split's row 0
+    has T tokens and every question of its final short batch fewer, so a
+    final batch padded with row 0 would run steps no real row takes."""
     from novel_vqa_torch.core.h5 import write_h5
 
     ques_h5, img_h5 = {}, {}
     for split, n_q in sizes.items():
         lengths = question_lengths(rs, n_q).astype(np.uint32)
+        if long_first and split == "test":
+            lengths[0] = T
+            last = n_q - n_q % BATCH
+            lengths[last:] = np.minimum(lengths[last:], T - 1)
         ques = np.zeros((n_q, T), np.uint32)
         for i, n in enumerate(lengths):
-            ques[i, :n] = rs.randint(1, V + 1, size=n)
+            ques[i, :n] = rs.randint(1, vocab + 1, size=n)
         ques_h5.update({
             f"ques_{split}": ques,
             f"ques_length_{split}": lengths,
@@ -649,7 +692,7 @@ def write_split(tmp: str, rs: np.random.RandomState, sizes, n_img: int = N_IMG,
     fc7 = np.maximum(rs.randn(n_img, F), 0).astype(np.float32)
     write_h5(os.path.join(tmp, "data_img.h5"), {f"images_{split}": fc7 for split in sizes})
     meta = {
-        "ix_to_word": {str(i): f"w{i}" for i in range(1, V + 1)},
+        "ix_to_word": {str(i): f"w{i}" for i in range(1, vocab + 1)},
         "ix_to_ans": {str(i): f"a{i}" for i in range(1, O + 1)},
     }
     meta.update({f"unique_img_{split}": [f"im{i}.png" for i in range(n_img)] for split in sizes})
@@ -1382,6 +1425,393 @@ def run_chain(K, dev, smi: str, probe: dict, stored_feats: np.ndarray) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 12: the text autoencoder at the reference width
+# --------------------------------------------------------------------------
+
+def write_corpus(folder: str, rs: np.random.RandomState, vocab: int, sizes) -> tuple:
+    """A synthetic corpus in the prepro_book_corpus schema
+    (000_prepro_book_corpus.py:343-368): ``labels/<split>`` (n, T) uint32,
+    left-aligned sentences of 1..T words, and ``label_length/<split>``,
+    written through the port's own h5 writer.  Returns (h5, json) paths."""
+    from novel_vqa_torch.core.h5 import write_h5
+
+    os.makedirs(folder, exist_ok=True)
+    arrays = {}
+    for split, n in sizes.items():
+        lengths = rs.randint(1, T + 1, size=n)
+        labels = np.zeros((n, T), np.uint32)
+        words = np.arange(T)[None, :] < lengths[:, None]
+        labels[words] = rs.randint(1, vocab + 1, size=int(words.sum()))
+        arrays[f"labels/{split}"] = labels
+        arrays[f"label_length/{split}"] = lengths.astype(np.uint32)
+    h5, meta = os.path.join(folder, "data.h5"), os.path.join(folder, "data.json")
+    write_h5(h5, arrays)
+    with open(meta, "w") as f:
+        json.dump({"ix_to_word": {str(i): f"w{i}" for i in range(1, vocab + 1)},
+                   **{f"num_{split}": n for split, n in sizes.items()}}, f)
+    return h5, meta
+
+
+def ae_eval_batches(n_val: int, batch: int, use: int) -> int:
+    """The batches one ``eval_split`` reads: the loader's iterator from 0
+    until a batch wraps (the head re-read included) or ``use`` sentences
+    were read (train_text_ae.eval_split, DataLoader.lua:58-88)."""
+    it, n, batches = 0, 0, 0
+    while True:
+        batches += 1
+        n += batch
+        if it + batch > n_val:
+            return batches
+        it += batch
+        if 0 <= use <= n:
+            return batches
+
+
+def ae_evals(iters: int, spd: int, every: int) -> int:
+    """The validations of one ``train_text_ae`` run: its loop's cadence."""
+    it, evals = 0, 0
+    while True:
+        it += spd - 1
+        if it % every < spd or it >= iters - 1:
+            evals += 1
+        it += 1
+        if iters <= it:
+            return evals
+
+
+def plain_greedy(params, cfg, state):
+    """``autoencoder.sample``'s greedy loop written out with the plain step,
+    called here directly: the tokens (L, N) and each step's top-2 logprob
+    gap (L, N).  The text_nostart lookup in eval mode is tanh(W[token])."""
+    from novel_vqa_torch.kernels.lstm import lstm_step_plain
+    from novel_vqa_torch.ops.embedding import embedding_lookup
+
+    dec = params["decoder"]
+    c, h = state
+    tokens = torch.full((c.shape[1],), cfg.start_token, dtype=torch.long, device=c.device)
+    out, gaps, lp = [], [], None
+    for t in range(cfg.seq_length + 1):
+        if t > 0:
+            top2 = torch.topk(lp, 2, dim=1).values
+            gaps.append(top2[:, 0] - top2[:, 1])
+            tokens = torch.argmax(lp, dim=1) + 1
+            out.append(tokens)
+        x = torch.tanh(embedding_lookup(params["lookup"], tokens))
+        nc, nh = [], []
+        for li, la in enumerate(dec["layers"]):
+            c_l, h_l = lstm_step_plain(x, h[li], c[li], la["wx"], la["wh"], la["bx"] + la["bh"])
+            nc.append(c_l)
+            nh.append(h_l)
+            x = h_l
+        c, h = torch.stack(nc), torch.stack(nh)
+        lp = torch.log_softmax(h[-1] @ dec["proj_w"] + dec["proj_b"], dim=1)
+    return torch.stack(out), torch.stack(gaps)
+
+
+def greedy_agreement(K, params, cfg, seq) -> dict:
+    """Greedy tokens of one batch through the step kernel (the CLI's
+    ``greedy_tokens``) against the plain step.  Each row is compared up to
+    its first differing token, which must fall where the plain path's top-2
+    gap is under AE_TIE (a tie); after it the rows feed different tokens."""
+    from novel_vqa_torch.models.seq import autoencoder as ae
+    from novel_vqa_torch.train import train_text_ae
+
+    got = train_text_ae.greedy_tokens(cfg, params, seq)
+    with torch.inference_mode(), mock.patch.object(K, "lstm_step", K.lstm_step_plain):
+        ref, gaps = plain_greedy(params, cfg, ae.encode(params, cfg, seq))
+    differ = got != ref
+    rows = differ.any(dim=0)
+    first = torch.argmax(differ.int(), dim=0)
+    first_gaps = gaps[first, torch.arange(seq.shape[1], device=seq.device)][rows]
+    if bool((first_gaps >= AE_TIE).any()):
+        raise AssertionError(f"greedy tokens differ from the plain step where it has no tie: gaps {first_gaps.tolist()}")
+    return {"rows": seq.shape[1], "rows_identical": int((~rows).sum()), "rows_split_at_a_tie": int(rows.sum()),
+            "tie": AE_TIE}
+
+
+def run_ae(K, dev, smi: str) -> dict:
+    """The text AE at the reference width: the train CLI at
+    ``--steps_per_dispatch`` 1 and 10 with language eval, its validation's
+    step-kernel launches against the count its loop implies, the greedy
+    tokens and the fused NLL of a val batch against the plain step, the
+    train step's time, rate, device time by kernel and peak memory, the
+    10-step loop without a host sync; then convert_ae and an arch1 run from
+    the converted file."""
+    from novel_vqa_torch.core.checkpoint import load_npz, lstm_params_to_flat
+    from novel_vqa_torch.core.h5 import H5Reader
+    from novel_vqa_torch.data.corpus import CorpusLoader
+    from novel_vqa_torch.models.seq import autoencoder as ae
+    from novel_vqa_torch.train import convert_ae, train_text_ae, train_vqa_arch1
+
+    out = {"card": smi, "vocab": AE_V, "width": AE_E, "batch": AE_BATCH, "iters": AE_ITERS, "runs": {}}
+    val_batches = ae_eval_batches(AE_N_VAL, AE_BATCH, train_text_ae.AETrainConfig.val_sentences_use)
+    # per val batch: apply_nll (T encoder + T+1 decoder steps) and encode +
+    # sample (T encoder steps, START + T greedy steps), one layer
+    per_val_batch = (AE_T + (AE_T + 1)) + (AE_T + (AE_T + 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        h5, meta = write_corpus(os.path.join(tmp, "corpus"), np.random.RandomState(SEED + 6), AE_V,
+                                {"train": AE_N_TRAIN, "val": AE_N_VAL, "test": AE_N_VAL})
+        out["setup_s"] = time.perf_counter() - t0
+        for spd in (1, 10):
+            ckpt = os.path.join(tmp, f"ae_{spd}")
+            K.lstm_seq.launches = K.lstm_step.launches = 0
+            t0 = time.perf_counter()
+            train_text_ae.main(["--input_h5", h5, "--input_json", meta, "--checkpoint_path", ckpt,
+                                "--rnn_size", str(AE_E), "--input_encoding_size", str(AE_E),
+                                "--batch_size", str(AE_BATCH),
+                                "--max_iters", str(AE_ITERS), "--steps_per_dispatch", str(spd),
+                                "--save_checkpoint_every", "10", "--losses_log_every", "5",
+                                "--sample_print", "2", "--language_eval", "1", "--device", dev.type])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            evals = ae_evals(AE_ITERS, spd, 10)
+            expected = {"lstm_seq": 0, "lstm_step": evals * val_batches * per_val_batch}
+            launches = {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches}
+            if launches != expected:
+                raise AssertionError(f"train_text_ae spd={spd}: launches {launches}, expected {expected}")
+            with open(os.path.join(ckpt, "model_id.json")) as f:
+                log = json.load(f)
+            losses = list(log["loss_history"].values()) + list(log["val_loss_history"].values())
+            if len(log["val_loss_history"]) != evals or not np.isfinite(losses).all():
+                raise AssertionError(f"train_text_ae spd={spd}: losses {log['loss_history']}, "
+                                     f"{log['val_loss_history']}")
+            out["runs"][f"spd{spd}"] = {"wall_s": wall, "launches": launches, "evals": evals,
+                                        "val_batches_per_eval": val_batches,
+                                        "loss_history": log["loss_history"],
+                                        "val_loss_history": log["val_loss_history"]}
+        out["launches_val"] = out["runs"]["spd1"]["launches"]["lstm_step"]
+
+        # the train step, its device time and memory; a val batch against
+        # the plain step
+        cfg = ae.AEConfig(vocab_size=AE_V, input_encoding_size=AE_E, rnn_size=AE_E, seq_length=AE_T)
+        params = ae.init_params(cfg, torch.Generator().manual_seed(SEED + 6), dev)
+        tx = train_text_ae.make_tx(train_text_ae.AETrainConfig())
+        opt_state = tx.init(params)
+        loader = CorpusLoader(h5, meta)
+        train_rows = torch.from_numpy(loader.split_rows("train")).to(dev)
+        val_seq = torch.from_numpy(loader.get_batch("val", AE_BATCH)[0]).to(dev)
+        loader.close()
+        seq = train_rows[:AE_BATCH].t().contiguous()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+        def step():
+            return train_text_ae.train_step(cfg, tx, params, opt_state, seq, gen)
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step()
+        torch.cuda.synchronize()
+        out["train_step_peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["train_step_ms"] = time_ms(step, reps=10, warmup=1)
+        out["text_ae_train_throughput"] = AE_BATCH / (out["train_step_ms"] / 1e3)
+        out["text_ae_train_throughput_unit"] = "sentences/s"
+        out["train_step_profile"] = profile(step, top=10)
+        out["train_step_device_idle_share"] = 1 - out["train_step_profile"]["device_ms_total"] / out["train_step_ms"]
+        offset = torch.zeros((), dtype=torch.int64, device=dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, _, _, losses = train_text_ae.train_steps_scan(
+                cfg, tx, params, opt_state, train_rows, offset, 10, AE_BATCH, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"train_steps_scan losses {losses.tolist()}")
+        out["scan10_sync_free"] = True
+        out["scan10_losses"] = losses.tolist()
+
+        out["greedy_vs_plain"] = greedy_agreement(K, params, cfg, val_seq)
+        got = train_text_ae.val_nll(cfg, params, val_seq)
+        with mock.patch.object(K, "lstm_step", K.lstm_step_plain):
+            ref = train_text_ae.val_nll(cfg, params, val_seq)
+        out["val_nll_vs_plain"] = {"kernel": float(got), "plain": float(ref), "abs_err": abs(float(got - ref))}
+        if not torch.allclose(got, ref, **TOL):
+            raise AssertionError(f"fused NLL through the step kernel {float(got)} != plain {float(ref)}")
+
+        def val_batch():
+            train_text_ae.val_nll(cfg, params, val_seq)
+            train_text_ae.greedy_tokens(cfg, params, val_seq)
+
+        out["val_batch_ms"] = time_ms(val_batch, reps=5, warmup=1)
+        out["val_batch_profile"] = profile(val_batch, top=6)
+
+        # convert the spd-1 checkpoint; arch1 from the converted file
+        npz = os.path.join(tmp, "ae_1", "model_id.npz")
+        conv = os.path.join(tmp, "converted.h5")
+        convert_ae.main(["--ae_model", npz, "--out", conv, "--device", dev.type])
+        flat, _ = load_npz(npz)
+        with H5Reader(conv) as f:
+            lookup, encoder = f["lookup"], f["encoder"]
+        layer = [{p: flat[f"encoder/0/{p}"] for p in ("wx", "bx", "wh", "bh")}]
+        if not (np.array_equal(lookup, flat["lookup"].T) and np.array_equal(encoder, lstm_params_to_flat(layer))):
+            raise AssertionError("convert_ae: lookup or encoder differs from the checkpoint")
+        vqa = os.path.join(tmp, "vqa")
+        os.makedirs(vqa)
+        write_split(vqa, np.random.RandomState(SEED + 8), {"train": N_TEST_TRAIN, "val": BATCH}, vocab=AE_V)
+        ckpt = os.path.join(tmp, "arch1") + "/"
+        train_vqa_arch1.main(data_argv(vqa) + ["--init_from", conv, "--input_encoding_size", str(AE_E),
+                                               "--rnn_size", str(AE_E), "--rnn_layer", "1",
+                                               "--nhimage", str(F), "--num_output", str(O),
+                                               "--batch_size", str(BATCH), "--max_iters", "2", "--log_every", "1",
+                                               "--checkpoint_path", ckpt, "--device", dev.type])
+        emas = loss_emas(ckpt)
+        if len(emas) != 2 or not np.isfinite(emas).all():
+            raise AssertionError(f"arch1 from the converted AE: loss EMAs {emas}")
+        out["convert"] = {"lookup_shape": list(lookup.shape), "encoder_size": int(encoder.size),
+                          "arrays_equal_checkpoint": True, "arch1_init_from_loss_ema": emas}
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 13: arch2 at the reference width
+# --------------------------------------------------------------------------
+
+def run_arch2(K, dev, smi: str) -> dict:
+    """arch2 at the reference width: an arch2 AE trained a few iterations
+    on a corpus over the VQA vocabulary, train_vqa_arch2 from it at
+    ``--steps_per_dispatch`` 1 and 10, eval_vqa_arch2 on its lstm.h5 in
+    both store modes over a split whose row 0 is its longest question and
+    whose final short batch is shorter; the step kernel's launches, the
+    first batch against the plain step, ms per batch, device time by kernel
+    and the device's idle share; the train step's time."""
+    from novel_vqa_torch.core.checkpoint import arch2_from_flat, load_flat_h5
+    from novel_vqa_torch.core.convert import arch2_params_from_numpy
+    from novel_vqa_torch.data.vqa import VQAData
+    from novel_vqa_torch.models.vqa import arch2
+    from novel_vqa_torch.train import eval_vqa_arch2, train_text_ae, train_vqa_arch2
+    from novel_vqa_torch.train.eval_loop import run_full_split
+
+    steps = T + 2  # image, START, T tokens; one layer
+    n_batches = -(-N_TEST // BATCH)
+    out = {"card": smi, "vocab": V, "width": A2_E, "batch": BATCH, "iters": TRAIN_ITERS, "runs": {}}
+    width = ["--input_encoding_size", str(A2_E), "--rnn_size", str(A2_E), "--nhimage", str(F),
+             "--num_output", str(O), "--batch_size", str(BATCH)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rs = np.random.RandomState(SEED + 9)
+        write_split(tmp, rs, {"train": N_TRAIN, "val": N_VAL, "test": N_TEST}, vocab=V, long_first=True)
+        h5, meta = write_corpus(os.path.join(tmp, "corpus"), rs, V,
+                                {"train": A2_AE_SENTENCES, "val": AE_BATCH, "test": AE_BATCH})
+        out["setup_s"] = time.perf_counter() - t0
+
+        ae_dir = os.path.join(tmp, "ae")
+        K.lstm_step.launches = 0
+        train_text_ae.main(["--input_h5", h5, "--input_json", meta, "--variant", "arch2",
+                            "--checkpoint_path", ae_dir, "--max_iters", str(A2_AE_ITERS),
+                            "--val_sentences_use", str(AE_BATCH), "--batch_size", str(AE_BATCH),
+                            "--input_encoding_size", str(A2_E), "--rnn_size", str(A2_E),
+                            "--device", dev.type])
+        # two validations (iterations 0 and the last) of one batch: apply_nll
+        # over T+2 encoder and T+1 decoder steps
+        expected = 2 * (steps + T + 1)
+        if K.lstm_step.launches != expected:
+            raise AssertionError(f"arch2 AE: {K.lstm_step.launches} step launches, expected {expected}")
+        out["ae_launches_val"] = K.lstm_step.launches
+
+        model = None
+        for spd in (1, 10):
+            ckpt = os.path.join(tmp, f"arch2_{spd}") + "/"
+            K.lstm_seq.launches = K.lstm_step.launches = 0
+            t0 = time.perf_counter()
+            train_vqa_arch2.main(data_argv(tmp) + width + [
+                "--init_from", os.path.join(ae_dir, "model_id.npz"), "--checkpoint_path", ckpt,
+                "--max_iters", str(TRAIN_ITERS), "--steps_per_dispatch", str(spd), "--log_every", "10",
+                "--device", dev.type])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches}
+            # one validation (iteration 0), each val batch through the step kernel
+            expected = {"lstm_seq": 0, "lstm_step": steps * -(-N_VAL // BATCH)}
+            if launches != expected:
+                raise AssertionError(f"train_vqa_arch2 spd={spd}: launches {launches}, expected {expected}")
+            emas = loss_emas(ckpt)
+            if len(emas) != TRAIN_ITERS // 10 or not np.isfinite(emas).all():
+                raise AssertionError(f"train_vqa_arch2 spd={spd}: loss EMAs {emas}")
+            out["runs"][f"spd{spd}"] = {"wall_s": wall, "launches": launches, "loss_ema": emas}
+            model = model or os.path.join(ckpt, "lstm.h5")
+
+        answers = {}
+        for hbm in (1, 0):
+            res = os.path.join(tmp, f"result_{hbm}")
+            K.lstm_step.launches = 0
+            t0 = time.perf_counter()
+            eval_vqa_arch2.main(data_argv(tmp) + width + [
+                "--model_path", model, "--out_path", res, "--hbm_resident", str(hbm), "--device", dev.type])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if K.lstm_step.launches != steps * n_batches:
+                raise AssertionError(f"eval_vqa_arch2 hbm_resident={hbm}: {K.lstm_step.launches} step "
+                                     f"launches, expected {steps * n_batches}")
+            answers[hbm] = {}
+            for name in sorted(os.listdir(res)):
+                with open(os.path.join(res, name), "rb") as f:
+                    answers[hbm][name] = f.read()
+                if len(json.loads(answers[hbm][name])) != N_TEST:
+                    raise AssertionError(f"{name}: wrong number of entries")
+            out[f"eval_hbm_resident_{hbm}"] = {"wall_s": wall, "lstm_step_launches": K.lstm_step.launches}
+        if answers[0] != answers[1] or len(answers[1]) != 2:
+            raise AssertionError("eval_vqa_arch2: the two store modes wrote different result JSONs")
+        out["store_modes_identical"] = True
+        out["launches_eval"] = out["eval_hbm_resident_1"]["lstm_step_launches"]
+
+        data = VQAData(*(os.path.join(tmp, n) for n in ("data_prepro.h5", "data_img.h5", "data_prepro.json")),
+                       load_test=True, align="left")
+        lengths = (data.d["question_test"] != 0).sum(1)
+        if not lengths[0] > lengths[n_batches * BATCH - BATCH:].max():
+            raise AssertionError("the test split's row 0 is not longer than its final batch")
+        cfg = arch2.Arch2Config(vocab_size=V, input_encoding_size=A2_E, rnn_size=A2_E, nhimage=F,
+                                num_output=O, seq_length=T)
+        params = arch2_params_from_numpy(arch2_from_flat(load_flat_h5(model), cfg), dev)
+        store = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in data.split_store("test").items()}
+        qinds = torch.arange(BATCH, device=dev)
+        tokens = store["tokens"][qinds]
+        image = store["image"][store["img_pos"][qinds].long() - 1]
+        with torch.inference_mode():
+            got = arch2.apply(params, cfg, tokens, image)
+            with mock.patch.object(K, "lstm_step", K.lstm_step_plain):
+                ref = arch2.apply(params, cfg, tokens, image)
+        out["first_batch_vs_plain"] = {"max_abs_err": float((got - ref).abs().max())}
+        check_close("arch2 first batch vs the plain step", (got,), (ref,))
+        # the scores behind the JSONs: both store modes run the same batches
+        # (the final one padded with the last row), so they agree exactly
+        scores = [run_full_split(arch2, cfg, params, data, "test", BATCH, device=dev, hbm_resident=hbm,
+                                 want="scores")[2] for hbm in (True, False)]
+        out["scores_store_modes_max_abs_diff"] = float(np.abs(scores[0] - scores[1]).max())
+        if out["scores_store_modes_max_abs_diff"] != 0.0:
+            raise AssertionError(f"arch2 scores differ between store modes by {out['scores_store_modes_max_abs_diff']}")
+
+        def whole_split():
+            arch2.eval_predict_scan(cfg, params, store, n_batches, BATCH)
+
+        split_ms = time_ms(whole_split, reps=5, warmup=1)
+        out["eval_ms_per_batch_on_card"] = split_ms / n_batches
+        out["eval_questions_per_s_on_card"] = N_TEST / (split_ms / 1e3)
+        out["batches"] = n_batches
+        out["profile_top"] = profile(whole_split)
+        out["device_idle_share"] = 1 - out["profile_top"]["device_ms_total"] / split_ms
+
+        # the train step at dropout 0.5 on the train split
+        train = VQAData(*(os.path.join(tmp, n) for n in ("data_prepro.h5", "data_img.h5", "data_prepro.json")),
+                        align="left")
+        tstore = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in train.split_store("train").items()}
+        tx = arch2.make_optimizer()
+        opt_state = tx.init(params)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        tq = torch.randint(0, N_TRAIN, (BATCH,), generator=gen, device=dev)
+
+        def step():
+            arch2.train_step_indexed(cfg, tx, params, opt_state, tstore, tq, gen)
+
+        out["train_step_ms"] = time_ms(step, reps=10, warmup=2)
+        out["train_scan10_ms_per_step"] = time_ms(
+            lambda: arch2.train_steps_scan(cfg, tx, params, opt_state, tstore, 10, BATCH, gen),
+            reps=3, warmup=1) / 10
+        out["train_step_profile"] = profile(step, top=8)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seq2-mutants", action="store_true",
@@ -1449,6 +1879,10 @@ def main(argv=None) -> int:
     extract_out, extract_feats = run_extract(K, K2, dev, smi, probe)
     emit({"phase": "extract", **extract_out})
     emit({"phase": "chain", **run_chain(K, dev, smi, probe, extract_feats)})
+    ae_out = run_ae(K, dev, smi)
+    emit({"phase": "ae", **ae_out})
+    arch2_out = run_arch2(K, dev, smi)
+    emit({"phase": "arch2", **arch2_out})
 
     def entry(name, rows, launches, replaces, source=SOURCE):
         timed = [r for r in rows if "kernel_ms" in r]
@@ -1481,6 +1915,10 @@ def main(argv=None) -> int:
               SEQ2_REPLACES, SEQ2_SOURCE),
     ]
     kernels[2]["replay_err_ratio"] = max(max(r["replay_err_ratio"].values()) for r in seq2_rows)
+    # the step kernel's launches on this slice's paths: one arch2 eval run
+    # (18 per batch) and one AE training run's validations
+    kernels[1]["launches_arch2_eval"] = arch2_out["launches_eval"]
+    kernels[1]["launches_ae_val"] = ae_out["launches_val"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})

@@ -7,8 +7,10 @@ same files load into both packages:
     002_train_vqa_arch1/002_train_baseline.lua:419-420);
   * npz files keyed by tree path (``lstm.npz``, ``train_state.npz``),
     NamedTuple fields by name, so optimizer states cross as well;
+  * arch2's ``lstm.h5`` ({cnn_w, encoder_w_q, multimodal_w},
+    003_train_vqa_arch2/003_train_ae_based.lua:406);
   * converted-AE transfer h5 files ({lookup^T, encoder, [multimodal]},
-    002_convert_text_model_arch1_as_h5.lua:39-42), read only.
+    002_convert_text_model_arch1_as_h5.lua:39-42).
 The h5 files go through the port's own reader and writer (``core/h5.py``).
 
 Layout conventions:
@@ -179,6 +181,56 @@ def arch1_from_flat(vectors: Dict[str, np.ndarray], cfg) -> Dict[str, Any]:
     }
 
 
+def _lstm_flat_size(input_size: int, rnn_size: int, num_layers: int) -> int:
+    return sum(
+        4 * rnn_size * (input_size if i == 0 else rnn_size) + 4 * rnn_size
+        + 4 * rnn_size * rnn_size + 4 * rnn_size
+        for i in range(num_layers)
+    )
+
+
+def arch2_to_flat(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Arch2 numpy params -> {cnn_w, encoder_w_q, multimodal_w}.
+    ``encoder_w_q`` is ``nn.Encoder``'s getParameters order: the LSTM
+    layers, then the lookup table's weight (Encoder_lstm.lua builds the
+    encoder first, the lookup second)."""
+    cnn = params["cnn_proj"]
+    cls = params["classifier"]
+    encoder_w_q = np.concatenate(
+        [lstm_params_to_flat(params["encoder"]), np.asarray(params["lookup"], np.float32).ravel()]
+    )
+    return {
+        "cnn_w": np.concatenate(_linear_to_flat(cnn["w"], cnn["b"])).astype(np.float32),
+        "encoder_w_q": encoder_w_q.astype(np.float32),
+        "multimodal_w": np.concatenate(_linear_to_flat(cls["w"], cls["b"])).astype(np.float32),
+    }
+
+
+def arch2_from_flat(vectors: Dict[str, np.ndarray], cfg) -> Dict[str, Any]:
+    """The three flat vectors -> arch2 numpy params for ``cfg``'s widths."""
+    V, E, H, L = cfg.vocab_size, cfg.input_encoding_size, cfg.rnn_size, cfg.num_layers
+    cv = np.asarray(vectors["cnn_w"], np.float32)
+    w, b, off = _linear_from_flat(cv, 0, cfg.nhimage, E)
+    if off != cv.size:
+        raise ValueError(f"cnn_w size mismatch: used {off} of {cv.size}")
+    ev = np.asarray(vectors["encoder_w_q"], np.float32)
+    lstm_size = _lstm_flat_size(E, H, L)
+    if ev.size != lstm_size + (V + 1) * E:
+        raise ValueError(
+            f"encoder_w_q size mismatch: {ev.size}, expected {lstm_size + (V + 1) * E}"
+        )
+    mv = np.asarray(vectors["multimodal_w"], np.float32)
+    cw, cb, off = _linear_from_flat(mv, 0, H, cfg.num_output)
+    if off != mv.size:
+        raise ValueError(f"multimodal_w size mismatch: used {off} of {mv.size}")
+    return {
+        "cnn_proj": {"w": w, "b": b},
+        "lookup": ev[lstm_size:].reshape(V + 1, E).copy(),
+        "encoder": lstm_params_from_flat(ev[:lstm_size], E, H, L),
+        "classifier": {"w": cw, "b": cb},
+    }
+
+
 def save_flat_h5(path: str, vectors: Dict[str, np.ndarray]) -> None:
     write_h5(path, {k: np.asarray(v, np.float32) for k, v in vectors.items()})
 
@@ -186,6 +238,26 @@ def save_flat_h5(path: str, vectors: Dict[str, np.ndarray]) -> None:
 def load_flat_h5(path: str) -> Dict[str, np.ndarray]:
     with H5Reader(path) as f:
         return {k: f[k] for k in f.keys()}
+
+
+def ae_transfer_to_h5(
+    path: str,
+    lookup: np.ndarray,  # (vocab+1, E) embedding table
+    encoder_layers: Sequence[Dict[str, np.ndarray]],
+    multimodal_flat: np.ndarray | None = None,
+) -> None:
+    """Write the converted-AE interchange h5
+    (002_convert_text_model_arch1_as_h5.lua:39-42): ``lookup`` stored
+    transposed to (E, vocab+1), as the reference converter's ``lookup:t()``;
+    ``encoder`` the flat LSTM vector; ``multimodal`` the weak-paired AE's
+    flat AxB vector when given."""
+    arrays = {
+        "lookup": np.asarray(lookup, np.float32).T,
+        "encoder": lstm_params_to_flat(encoder_layers),
+    }
+    if multimodal_flat is not None:
+        arrays["multimodal"] = np.asarray(multimodal_flat, np.float32)
+    write_h5(path, arrays)
 
 
 def ae_transfer_from_h5(

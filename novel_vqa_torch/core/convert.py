@@ -30,14 +30,19 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def arch1_params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
-    """JAX arch1 params as numpy arrays -> the port's dict of tensors."""
+def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """JAX params (arch1, arch2 or an autoencoder's) as numpy arrays -> the
+    port's dict of float32 tensors on ``device``: the layouts are the same."""
     return tree_map(_to_tensor(device), tree)
 
 
-def arch1_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Inverse of :func:`arch1_params_from_numpy`."""
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`params_from_numpy`."""
     return tree_map(_to_numpy, params)
+
+
+arch1_params_from_numpy = arch2_params_from_numpy = ae_params_from_numpy = params_from_numpy
+arch1_params_to_numpy = arch2_params_to_numpy = ae_params_to_numpy = params_to_numpy
 
 
 def lstm_params_from_numpy(

@@ -1,19 +1,24 @@
-"""A small HDF5 reader and writer for flat files of plain arrays, numpy only.
+"""A small HDF5 reader and writer for files of plain arrays, numpy only.
 
-The port's data files (``data_prepro.h5``, ``data_img.h5``) and flat
+The port's data files (``data_prepro.h5``, ``data_img.h5``, the corpus
+``data.h5`` with its ``labels/{train,val,test}`` groups) and flat
 checkpoints (``lstm.h5``) are HDF5 files holding numeric datasets in the
-root group.  The machine with the card has no h5py and no libhdf5, so the
-port reads and writes that subset of the format itself:
+root group or in groups below it.  The machine with the card has no h5py
+and no libhdf5, so the port reads and writes that subset of the format
+itself:
 
 * reading: superblock versions 0-3; object headers versions 1 and 2 with
-  continuation blocks; root groups as a symbol table (B-tree v1, local
-  heap) or as compact link messages; datasets of fixed-point or
-  floating-point elements in contiguous or compact layout.  Anything else
-  (chunked or compressed storage, dense link storage, other element types)
-  raises ``ValueError``.
-* writing: superblock version 0 with a symbol-table root group and one
-  contiguous dataset per array, the layout h5py itself writes by default,
-  so h5py and the JAX package read these files too.
+  continuation blocks; groups as a symbol table (B-tree v1, local heap) or
+  as compact link messages, at any depth (``reader["labels/train"]``);
+  datasets of fixed-point or floating-point elements in contiguous or
+  compact layout, whole or as a window of rows (``reader.dataset(name)[a:b]``
+  copies only those rows).  Anything else (chunked or compressed storage,
+  dense link storage, other element types) raises ``ValueError``.
+* writing: superblock version 0, symbol-table groups and one contiguous
+  dataset per array, the layout h5py itself writes by default, so h5py and
+  the JAX package read these files too; a key ``"a/b"`` is dataset ``b`` of
+  group ``a``.  :func:`update_h5` adds or replaces datasets of an existing
+  file (h5py's mode ``"a"``) by writing the whole file anew.
 
 Spec: the HDF5 File Format Specification, version 3.0.
 """
@@ -21,6 +26,7 @@ Spec: the HDF5 File Format Specification, version 3.0.
 from __future__ import annotations
 
 import mmap
+import os
 import struct
 from typing import Dict, Iterator, List, Tuple
 
@@ -39,11 +45,14 @@ def _u(buf: bytes, off: int, size: int) -> int:
 
 
 class H5Reader:
-    """Read-only view of the root group's datasets, memory-mapped.
+    """Read-only view of a file's datasets, memory-mapped.
 
-    ``keys()``, ``name in reader`` and ``reader[name]`` (a numpy array,
-    copied out on demand) mirror the slice of h5py's ``File`` API the port
-    uses.  Use it in a ``with`` block, which closes the mapping."""
+    ``keys()`` (the root group's members), ``name in reader`` and
+    ``reader[name]`` (a numpy array, copied out on demand; ``name`` may be
+    a path ``"group/dataset"``) mirror the slice of h5py's ``File`` API the
+    port uses; ``dataset(name)`` is a view whose row slices copy only those
+    rows, and ``datasets()`` lists every dataset's path.  Use it in a
+    ``with`` block, which closes the mapping."""
 
     def __init__(self, path: str):
         self.path = path
@@ -67,7 +76,8 @@ class H5Reader:
             raise ValueError(f"{path}: unsupported superblock version {version}")
         if self._so != 8 or self._sl != 8:
             raise ValueError(f"{path}: only 8-byte offsets and lengths are supported")
-        self._links = dict(self._group_links(root))
+        self._groups: Dict[int, Dict[str, int]] = {}
+        self._links = self._group(root)
 
     # -- low level ---------------------------------------------------------
 
@@ -172,19 +182,53 @@ class H5Reader:
 
         yield from walk(btree)
 
+    def _group(self, addr: int) -> Dict[str, int]:
+        if addr not in self._groups:
+            self._groups[addr] = dict(self._group_links(addr))
+        return self._groups[addr]
+
+    def _find(self, name: str) -> int:
+        """The object header address of the path ``name``."""
+        links, addr = self._links, None
+        for part in name.strip("/").split("/"):
+            if links is None or part not in links:
+                raise KeyError(f"{self.path}: no dataset {name!r}")
+            addr = links[part]
+            links = None if self._has_layout(addr) else self._group(addr)
+        return addr
+
+    def _has_layout(self, addr: int) -> bool:
+        return any(mtype == _MSG_LAYOUT for mtype, _ in self._messages(addr))
+
     # -- datasets ----------------------------------------------------------
 
     def keys(self) -> List[str]:
         return list(self._links)
 
     def __contains__(self, name: str) -> bool:
-        return name in self._links
+        try:
+            self._find(name)
+        except KeyError:
+            return False
+        return True
 
-    def __getitem__(self, name: str) -> np.ndarray:
-        if name not in self._links:
-            raise KeyError(f"{self.path}: no dataset {name!r}")
+    def datasets(self) -> List[str]:
+        """The path of every dataset in the file, groups walked depth first."""
+        out: List[str] = []
+
+        def walk(links: Dict[str, int], prefix: str) -> None:
+            for name, addr in links.items():
+                if self._has_layout(addr):
+                    out.append(prefix + name)
+                else:
+                    walk(self._group(addr), prefix + name + "/")
+
+        walk(self._links, "")
+        return out
+
+    def dataset(self, name: str) -> "H5Dataset":
         shape = dtype = layout = None
-        for mtype, body in self._messages(self._links[name]):
+        for mtype, body in self._messages(self._find(name)):
             if mtype == _MSG_DATASPACE:
                 shape = _dataspace(body)
             elif mtype == _MSG_DATATYPE:
@@ -193,22 +237,21 @@ class H5Reader:
                 layout = body
         if shape is None or dtype is None or layout is None:
             raise ValueError(f"{self.path}: {name!r} is not a dataset")
-        count = int(np.prod(shape, dtype=np.int64))
         if layout[0] not in (3, 4):
             raise ValueError(f"{self.path}: {name!r}: layout version {layout[0]} unsupported")
         if layout[1] == 0:  # compact
-            raw = layout[4 : 4 + _u(layout, 2, 2)]
-            arr = np.frombuffer(raw, dtype, count)
+            source = layout[4 : 4 + _u(layout, 2, 2)]
+            offset = 0
         elif layout[1] == 1:  # contiguous
             addr = _u(layout, 2, 8)
-            if addr == UNDEF:  # never written: the fill value, zero
-                arr = np.zeros(count, dtype)
-            else:
-                arr = np.frombuffer(self._buf, dtype, count, self._addr(addr))
+            # never written: the fill value, zero
+            source, offset = (None, 0) if addr == UNDEF else (self._buf, self._addr(addr))
         else:
             raise ValueError(f"{self.path}: {name!r}: chunked storage is not supported")
-        # a copy in native byte order, owning its memory past close()
-        return arr.reshape(shape).astype(dtype.newbyteorder("="))
+        return H5Dataset(shape, dtype, source, offset)
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self.dataset(name).read()
 
     def close(self) -> None:
         self._buf.close()
@@ -219,6 +262,38 @@ class H5Reader:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+class H5Dataset:
+    """One dataset of an open :class:`H5Reader`: ``shape``, ``dtype``,
+    ``read()`` for the whole array and ``view[start:stop]`` for a window of
+    rows along the first axis, each a copy in native byte order that owns
+    its memory past the reader's close."""
+
+    def __init__(self, shape, dtype: np.dtype, source, offset: int):
+        self.shape, self.dtype = tuple(shape), dtype
+        self._source, self._offset = source, offset
+        self._row = int(np.prod(self.shape[1:], dtype=np.int64))
+
+    def _rows(self, start: int, stop: int) -> np.ndarray:
+        count = (stop - start) * self._row
+        if self._source is None:
+            arr = np.zeros(count, self.dtype)
+        else:
+            offset = self._offset + start * self._row * self.dtype.itemsize
+            arr = np.frombuffer(self._source, self.dtype, count, offset)
+        return arr.reshape((stop - start,) + self.shape[1:]).astype(self.dtype.newbyteorder("="))
+
+    def read(self) -> np.ndarray:
+        if not self.shape:
+            return self._rows(0, 1).reshape(())
+        return self._rows(0, self.shape[0])
+
+    def __getitem__(self, key: slice) -> np.ndarray:
+        if not isinstance(key, slice) or key.step not in (None, 1):
+            raise TypeError("an H5Dataset takes a slice of rows, step 1")
+        start, stop, _ = key.indices(self.shape[0])
+        return self._rows(start, max(start, stop))
 
 
 def _dataspace(body: bytes) -> Tuple[int, ...]:
@@ -286,67 +361,121 @@ def _dataset_messages(a: np.ndarray, data_addr: int) -> bytes:
     )
 
 
-def write_h5(path: str, arrays: Dict[str, np.ndarray]) -> None:
-    """Write ``arrays`` as contiguous datasets in the root group of a new
-    HDF5 file at ``path`` (superblock 0, symbol-table root group)."""
-    names = sorted(arrays, key=str.encode)  # a symbol table node is sorted
-    datas = []
-    for n in names:
-        a = np.ascontiguousarray(arrays[n])
+def _tree(arrays: Dict[str, np.ndarray]) -> dict:
+    """``{"a/b": x}`` -> ``{"a": {"b": x}}``, each array contiguous and
+    little-endian."""
+    root: dict = {}
+    for key, value in arrays.items():
+        parts = key.strip("/").split("/")
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+            if not isinstance(node, dict):
+                raise ValueError(f"{key}: {part!r} is a dataset, not a group")
+        if parts[-1] in node:
+            raise ValueError(f"{key}: written twice, or a group of that name exists")
+        a = np.ascontiguousarray(value)
         if a.dtype.kind not in "iuf":
-            raise ValueError(f"{n}: dtype {a.dtype} cannot be written")
-        datas.append(a.astype(a.dtype.newbyteorder("<")))
-    leaf_k = max(4, -(-len(names) // 2))  # one symbol table node holds 2K links
+            raise ValueError(f"{key}: dtype {a.dtype} cannot be written")
+        node[parts[-1]] = a.astype(a.dtype.newbyteorder("<"))
+    return root
+
+
+def _max_members(node: dict) -> int:
+    return max([len(node)] + [_max_members(v) for v in node.values() if isinstance(v, dict)])
+
+
+def write_h5(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """Write ``arrays`` as contiguous datasets of a new HDF5 file at
+    ``path`` (superblock 0, symbol-table groups); a key ``"a/b"`` is
+    dataset ``b`` of group ``a``."""
+    root = _tree(arrays)
+    # one symbol table node per group, holding up to 2K links (K is a
+    # file-wide value of the superblock)
+    leaf_k = max(4, -(-_max_members(root) // 2))
     internal_k = 16
+    out = bytearray(96)  # the superblock, written last
 
-    # local heap: offset 0 holds the empty name, the B-tree's first key
-    heap_data = b"\0" * 8
-    name_off = []
-    for n in names:
-        name_off.append(len(heap_data))
-        heap_data += _pad8(n.encode() + b"\0")
+    def alloc(n: int) -> int:
+        addr = len(out)
+        out.extend(b"\0" * (n + (-n % 8)))
+        return addr
 
-    root_ohdr = 96  # right after the superblock
-    heap = root_ohdr + 40
-    heap_seg = heap + 32
-    btree = heap_seg + len(heap_data)
-    snod = btree + 24 + (4 * internal_k + 1) * 8
-    p = snod + 8 + 2 * leaf_k * 40
-    ohdr_addr = []
-    for a in datas:
-        ohdr_addr.append(p)
-        p += 16 + len(_dataset_messages(a, 0))
-    data_addr = []
-    for a in datas:
-        data_addr.append(p)
-        p += a.nbytes + (-a.nbytes % 8)
+    def put(addr: int, b: bytes) -> None:
+        out[addr : addr + len(b)] = b
 
-    out = bytearray(p)
-    out[0:96] = (
-        SIGNATURE
+    def group(node: dict) -> Tuple[int, int, int]:
+        """Lay out one group and, below it, its members: returns the
+        addresses of its object header, B-tree and local heap."""
+        names = sorted(node, key=str.encode)  # a symbol table node is sorted
+        # local heap: offset 0 holds the empty name, the B-tree's first key
+        heap_data = b"\0" * 8
+        name_off = []
+        for n in names:
+            name_off.append(len(heap_data))
+            heap_data += _pad8(n.encode() + b"\0")
+        ohdr = alloc(40)
+        heap = alloc(32)
+        heap_seg = alloc(len(heap_data))
+        btree = alloc(24 + (4 * internal_k + 1) * 8)
+        snod = alloc(8 + 2 * leaf_k * 40)
+        entries = []
+        for n in names:
+            member = node[n]
+            if isinstance(member, dict):
+                m_ohdr, m_btree, m_heap = group(member)
+                # cache type 1: the member group's B-tree and heap
+                entries.append(struct.pack("<QI4xQQ", m_ohdr, 1, m_btree, m_heap))
+            else:
+                msgs = _dataset_messages(member, 0)
+                m_ohdr = alloc(16 + len(msgs))
+                data = alloc(member.nbytes) if member.nbytes else UNDEF  # empty: no storage
+                msgs = _dataset_messages(member, data)
+                put(m_ohdr, struct.pack("<BBHII4x", 1, 0, 4, 1, len(msgs)) + msgs)
+                if member.nbytes:
+                    put(data, member.tobytes())
+                entries.append(struct.pack("<QI4x16x", m_ohdr, 0))
+        put(ohdr, struct.pack("<BBHII4x", 1, 0, 1, 1, 24)
+            + _message_v1(_MSG_SYMBOL_TABLE, struct.pack("<QQ", btree, heap)))
+        # free-list head 1 = no free block (H5HL_FREE_NULL)
+        put(heap, b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_data), 1, heap_seg))
+        put(heap_seg, heap_data)
+        tree = b"TREE" + struct.pack("<BBHQQ", 0, 0, 1 if names else 0, UNDEF, UNDEF)
+        if names:  # one leaf: key "" | the symbol table node | key = last name
+            tree += struct.pack("<QQQ", 0, snod, name_off[-1])
+        put(btree, tree)
+        node_b = b"SNOD" + struct.pack("<BxH", 1, len(names))
+        for off, entry in zip(name_off, entries):
+            node_b += struct.pack("<Q", off) + entry
+        put(snod, node_b)
+        return ohdr, btree, heap
+
+    root_ohdr, root_btree, root_heap = group(root)  # right after the superblock
+    put(0, SIGNATURE
         + struct.pack("<8B", 0, 0, 0, 0, 0, 8, 8, 0)
         + struct.pack("<HHI", leaf_k, internal_k, 0)
-        + struct.pack("<QQQQ", 0, UNDEF, p, UNDEF)
+        + struct.pack("<QQQQ", 0, UNDEF, len(out), UNDEF)
         # root symbol table entry, cache type 1: the B-tree and heap
-        + struct.pack("<QQI4xQQ", 0, root_ohdr, 1, btree, heap)
-    )
-    out[root_ohdr:heap] = struct.pack("<BBHII4x", 1, 0, 1, 1, 24) + _message_v1(
-        _MSG_SYMBOL_TABLE, struct.pack("<QQ", btree, heap)
-    )
-    # free-list head 1 = no free block (H5HL_FREE_NULL)
-    out[heap:heap_seg] = b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_data), 1, heap_seg)
-    out[heap_seg:btree] = heap_data
-    tree = b"TREE" + struct.pack("<BBHQQ", 0, 0, 1 if names else 0, UNDEF, UNDEF)
-    if names:  # one leaf: key "" | the symbol table node | key = last name
-        tree += struct.pack("<QQQ", 0, snod, name_off[-1])
-    out[btree : btree + len(tree)] = tree
-    node = b"SNOD" + struct.pack("<BxH", 1, len(names))
-    for off, oh in zip(name_off, ohdr_addr):
-        node += struct.pack("<QQI4x16x", off, oh, 0)
-    out[snod : snod + len(node)] = node
-    for a, oh, da in zip(datas, ohdr_addr, data_addr):
-        msgs = _dataset_messages(a, da if a.nbytes else UNDEF)  # empty: no storage
-        out[oh : oh + 16 + len(msgs)] = struct.pack("<BBHII4x", 1, 0, 4, 1, len(msgs)) + msgs
-        out[da : da + a.nbytes] = a.tobytes()
+        + struct.pack("<QQI4xQQ", 0, root_ohdr, 1, root_btree, root_heap))
     with open(path, "wb") as f:
         f.write(bytes(out))
+
+
+def update_h5(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """Add ``arrays`` to the HDF5 file at ``path``, replacing datasets of
+    the same name and keeping every other one (h5py's mode ``"a"``): the
+    file is read whole, written anew under a temporary name and renamed
+    over the old one.  A missing file is created; one this module cannot
+    read raises ``ValueError``."""
+    merged: Dict[str, np.ndarray] = {}
+    if os.path.exists(path):
+        with H5Reader(path) as f:
+            merged = {name: f[name] for name in f.datasets()}
+    merged.update(arrays)
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        write_h5(tmp, merged)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)

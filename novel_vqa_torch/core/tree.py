@@ -38,16 +38,19 @@ def tree_leaves(tree: Any) -> List[Any]:
 
 
 def value_and_grad(fn: Callable) -> Callable:
-    """``jax.value_and_grad`` for a scalar ``fn(params, *args)``: returns
-    (value detached, grads in the structure of ``params``).  The caller's
-    tensors are not touched: the graph is built on detached aliases."""
+    """``jax.value_and_grad`` for a scalar ``fn(params, *args, **kwargs)``:
+    returns (value detached, grads in the structure of ``params``).  The
+    caller's tensors are not touched: the graph is built on detached
+    aliases.  A leaf ``fn`` does not reach (a frozen lookup, behind
+    ``detach``) gets a zero gradient, as JAX gives it."""
 
-    def wrapped(params, *args) -> Tuple[torch.Tensor, Any]:
+    def wrapped(params, *args, **kwargs) -> Tuple[torch.Tensor, Any]:
         with torch.enable_grad():
             live = tree_map(lambda p: p.detach().requires_grad_(), params)
-            value = fn(live, *args)
-            grads = torch.autograd.grad(value, tree_leaves(live))
-        it = iter(grads)
+            value = fn(live, *args, **kwargs)
+            leaves = tree_leaves(live)
+            grads = torch.autograd.grad(value, leaves, allow_unused=True)
+        it = iter(torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves))
         return value.detach(), tree_map(lambda _: next(it), params)
 
     return wrapped

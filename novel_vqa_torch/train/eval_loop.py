@@ -9,6 +9,14 @@ Two data-movement strategies (reference loop 004_eval_model.lua:202-273):
   larger than device memory) through ``arch.eval_step``; scores come back
   and the caller argmaxes on the host.
 
+Both pad the final short batch with the split's LAST row, the row the
+resident scan clamps to, so both run the same batches.  That matters for
+arch2, whose encoder skips a step only when every row of the batch is null
+there: a longer padding row would make the real rows run extra null steps.
+(The JAX package's streaming path pads with row 0,
+``novel_vqa_tpu/data/vqa.py:187-188``, and so differs from its own
+resident path for arch2.)
+
 ``data_parallel`` comes with the multi-GPU slice.
 """
 
@@ -39,7 +47,7 @@ def run_full_split(
     if data_parallel:
         raise NotImplementedError(
             "run_full_split(data_parallel=True): multi-GPU eval is ported "
-            "with the multi-GPU slice"
+            "with the multi-GPU slice (ROADMAP A13)"
         )
     if not hbm_resident and want == "predict":
         raise ValueError(
@@ -63,13 +71,12 @@ def run_full_split(
         return None, None, scores_m.reshape(-1, scores_m.shape[-1])[:n].cpu().numpy()
 
     parts = []
-    for batch in data.iter_split(split, batch_size, pad_to_batch=True):
-        _, scores = arch.eval_step(
-            cfg,
-            params,
-            torch.from_numpy(batch.tokens).to(device),
-            torch.from_numpy(batch.image).to(device),
-            torch.from_numpy(batch.labels).to(device),
-        )
-        parts.append(scores[: len(batch.question_id)])
+    for batch in data.iter_split(split, batch_size):
+        real = len(batch.question_id)
+        arrays = (batch.tokens, batch.image, batch.labels)
+        if real < batch_size:  # repeat the split's last row, as the scan clamps
+            arrays = tuple(np.concatenate([a, np.repeat(a[-1:], batch_size - real, axis=0)])
+                           for a in arrays)
+        _, scores = arch.eval_step(cfg, params, *(torch.from_numpy(a).to(device) for a in arrays))
+        parts.append(scores[:real])
     return None, None, torch.cat(parts).cpu().numpy()

@@ -60,6 +60,7 @@ from novel_vqa_torch.core.convert import (
 )
 from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.core.logging import EMA, MetricsLogger
+from novel_vqa_torch.core.profiling import nan_guard, trace
 from novel_vqa_torch.core.tree import tree_map
 from novel_vqa_torch.data.vqa import VQAData
 from novel_vqa_torch.models.vqa import arch1
@@ -148,24 +149,6 @@ def build_params(opt: TrainConfig, cfg: arch1.Arch1Config, device):
                 {"wq": wq, "bq": bq, "wi": wi, "bi": bi}, device
             )
     return params
-
-
-@contextlib.contextmanager
-def _profile(out_dir: str, device: torch.device):
-    """A ``torch.profiler`` trace of the enclosed loop, written to
-    ``<out_dir>/trace.json``; nothing when ``out_dir`` is empty."""
-    if not out_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
 
 def main(argv=None):
@@ -281,9 +264,8 @@ def main(argv=None):
     chunk = max(1, opt.steps_per_dispatch)
     it = start_iter
     with contextlib.ExitStack() as stack:
-        stack.enter_context(_profile(opt.profile_dir, device))
-        if opt.debug_nans:
-            stack.enter_context(torch.autograd.detect_anomaly())
+        stack.enter_context(trace(opt.profile_dir, device))
+        stack.enter_context(nan_guard(bool(opt.debug_nans)))
         while it < opt.max_iters:
             if (it + 1) % opt.save_checkpoint_every <= chunk - 1 or it == 0:
                 loss_val = validate()

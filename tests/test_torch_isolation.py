@@ -38,8 +38,8 @@ def test_no_jax_imports(path):
 
 
 def test_port_imports_without_nvcc_jax_or_card(tmp_path):
-    """In a fresh interpreter with no nvcc on PATH and no card: import every
-    module of the port, run the seq wrapper on CPU tensors (its plain
+    """In a fresh interpreter with no nvcc on PATH and no card: import the
+    port's entry points (and with them every module they reach), run the seq wrapper on CPU tensors (its plain
     version) and the VGG prepro, and check that neither JAX nor the JAX
     package was loaded and that nothing was built (neither a kernel nor
     the native decoder)."""
@@ -48,6 +48,8 @@ def test_port_imports_without_nvcc_jax_or_card(tmp_path):
         "import novel_vqa_torch.train.eval_vqa_arch1\n"
         "import novel_vqa_torch.train.extract_features, novel_vqa_torch.train.import_caffe\n"
         "import novel_vqa_torch.eval.drivers, novel_vqa_torch.eval.demo\n"
+        "import novel_vqa_torch.train.train_text_ae, novel_vqa_torch.train.convert_ae\n"
+        "import novel_vqa_torch.train.train_vqa_arch2, novel_vqa_torch.train.eval_vqa_arch2\n"
         "from novel_vqa_torch.data import images, native_images\n"
         "from novel_vqa_torch.kernels import build, lstm\n"
         "xs = torch.zeros(3, 2, 4); m = torch.ones(3, 2)\n"
