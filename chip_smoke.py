@@ -27,7 +27,9 @@ Phases, each printing one JSON line:
      slices' question lengths (both timed), and the gaps masks at
      keep 0.7; its rows report the same launch and skip.  The step
      kernel runs a stack step of the step route (In=200, then 512), the
-     autoencoder's width (N=1000) and odd shapes on both of its tiles; its
+     autoencoder's width (N=1000), the weak-paired validation's (N=16)
+     and compute_mean_vectors' (N=256) shapes, and odd shapes on both of
+     its tiles; its
      rows report its launch (tile, CTAs, the CTAs an SM holds, one wave)
      and, where timed, the device time per call from a CUDA graph of 20
      calls (``device_ms``) beside the time per call a Python caller sees
@@ -103,8 +105,29 @@ Phases, each printing one JSON line:
      identical JSONs, 18 step launches per batch per mode, the first batch
      within 1e-5 of a forward through the plain step; ms per batch and
      questions/s (CUDA events around the split, median of 5), device time
-     by kernel, the idle share; the train step's ms.
-Phases 9-13 print the card's name and power limit on their lines.
+     by kernel, the idle share; the train step's ms;
+ 14. inception: Inception-v3's 2048-d pool at 299x299, batch 32, He-init
+     weights, as phase 10 does VGG: the pipelined loop on INC_BATCHES
+     predecoded batches, float32 (TF32 off) and bf16: images/s, the
+     forward's ms per batch against its bound (FLOPs from the conv shapes),
+     device ms by stage (inception.stem, .mixed5, .mixed6, .mixed7, .pool)
+     and the idle share; the first two images against the port's CPU fp32
+     forward (INC_REL_TOL); the CLI, ``--model inception``, on synthetic
+     PNGs (center square crop), its rows against that forward;
+ 15. weakpaired: the weak-paired trainer at bench.py's reference width
+     (VGG-16 at crop 224 from 256x256 stored images, batch 16, vocab
+     20,000, E = H = 512, adam) on a synthetic corpus with ``images/*``
+     groups: ``compute_mean_vectors lstm`` at batch 256 (its step launches,
+     2 batches x 16, and its mean within 1e-5 of the plain route's), then
+     the vqa_arch CLI run reading that mean, 20 iterations with the
+     finetune gate at 10 and validation every 10 (33 step launches per
+     validation batch at N=16, 3 batches, 3 validations); each phase's
+     step in both compute dtypes (CUDA events, median of 10; device time
+     by kernel, idle share, peak memory), the trunk's forward in both, a
+     validation batch (its NLL within 1e-5 of the plain step's); a short
+     null run on the Inception trunk at crop 224 (35 launches per
+     validation batch).
+Phases 9-15 print the card's name and power limit on their lines.
 Then a line with nvidia-smi's name and power limit, one JSON line listing
 every kernel, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without a card it exits non-zero at
@@ -198,6 +221,26 @@ AE_TIE = 1e-5
 # 003_train_vqa_arch2/002_train_baseline.lua:26-52: E = H = 512, one layer);
 # its AE's corpus and run length
 A2_E, A2_AE_SENTENCES, A2_AE_ITERS = 512, 5000, 5
+# the inception phase: Inception-v3's 2048-d pool at the reference
+# extractor's input (001_prepro_img_inc.lua, 299x299) and ExtractConfig's
+# batch; a handful of synthetic PNGs through the CLI
+INC_SIZE, INC_BATCHES, INC_CLI_IMAGES, INC_CLI_COPIES = 299, 8, 40, 4
+# its features against the CPU fp32 forward: fp32 as VGG's; bf16 storage
+# rounds ~47 stacked conv outputs on Inception's longest path (VGG: 16),
+# about 1.2% of max |f32| by the end on the CPU, the JAX package's own bf16
+# route as much as the port's (tests/test_torch_inception.py)
+INC_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the weakpaired phase at bench.py's reference width (bench.py:604-650,
+# WPTrainConfig's defaults): VGG-16 at crop 224 from 256x256 stored images,
+# batch 16, vocab 20,000, E = H = 512, vqa_arch, adam; a corpus cut to one
+# pass of the run and three validation batches; the finetune gate halfway;
+# then a short Inception-trunk run (null) at crop 224, and
+# compute_mean_vectors at its default batch
+WP_V, WP_E, WP_BATCH, WP_SIDE, WP_CROP = 20000, 512, 16, 256, 224
+WP_ITERS, WP_FINETUNE_AFTER, WP_EVERY = 20, 10, 10
+WP_N_TRAIN, WP_N_VAL = WP_ITERS * WP_BATCH, 40
+WP_INC_ITERS, WP_INC_FINETUNE_AFTER = 4, 2
+MV_BATCH = 256
 
 
 def emit(obj) -> None:
@@ -420,9 +463,12 @@ def seq_case(K, N, In, H_, mask_kind, timed, gen, dev):
 # of the row tile, and odd shapes: ragged row, unit and k tiles, rows not
 # 16-byte aligned (In=13, 4-byte copies), more hidden units than one unit
 # tile (H=600); the last two on the wide tile (more CTAs than SMs), the
-# others at N <= 500 on the narrow one
+# others at N <= 500 on the narrow one.  Timed beside them: the weak-paired
+# validation's (N=16, a half-empty 32-row tile) and compute_mean_vectors'
+# (N=256) steps
 STEP_CASES = ((BATCH, E, H, True, True), (BATCH, H, H, True, True),
-              (1000, H, H, True, False), (128, H, H, False, False),
+              (1000, H, H, True, False), (WP_BATCH, H, H, True, False), (MV_BATCH, H, H, True, False),
+              (128, H, H, False, False),
               (13, 24, 40, False, False), (13, 24, 600, False, False), (7, 13, 37, False, False),
               (1000, E, 300, False, False), (1000, 13, 300, False, False))
 
@@ -824,7 +870,10 @@ def run_slice(K, dev):
 
 
 def profile(fn, top: int = 8):
-    """Device time by kernel name over one call, from torch.profiler."""
+    """Device time by kernel name over one call, from torch.profiler; the
+    device-side copies of ``record_function`` ranges (VGG's and
+    Inception's stages) are left out, which would count their kernels
+    twice."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -834,7 +883,7 @@ def profile(fn, top: int = 8):
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
+              and e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     total = sum(e.device_time_total for e in events)
     events.sort(key=lambda e: -e.device_time_total)
     return {"device_ms_total": total / 1e3,
@@ -1106,7 +1155,8 @@ def stage_profile(fn, top: int = 6) -> dict:
     """Device ms by stage over one call of the extraction forward, from
     torch.profiler: each ``record_function`` range of the forward
     (extract.prepro, vgg.block1..5, vgg.fc6, vgg.fc7) sums the device time
-    of the kernels launched inside it; beside it the total kernel time (the
+    of the kernels launched inside it (Inception's: inception.stem, .mixed5,
+    .mixed6, .mixed7, .pool); beside it the total kernel time (the
     ranges' own device-side annotations left out, which would count each
     kernel twice) and the kernels that take most of it."""
     from torch.profiler import ProfilerActivity
@@ -1118,7 +1168,8 @@ def stage_profile(fn, top: int = 6) -> dict:
         fn()
         torch.cuda.synchronize()
     stages = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-              if e.key.startswith(("extract.", "vgg.")) and e.device_type == torch.autograd.DeviceType.CPU}
+              if e.key.startswith(("extract.", "vgg.", "inception."))
+              and e.device_type == torch.autograd.DeviceType.CPU}
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
@@ -1429,11 +1480,13 @@ def run_chain(K, dev, smi: str, probe: dict, stored_feats: np.ndarray) -> dict:
 # phase 12: the text autoencoder at the reference width
 # --------------------------------------------------------------------------
 
-def write_corpus(folder: str, rs: np.random.RandomState, vocab: int, sizes) -> tuple:
+def write_corpus(folder: str, rs: np.random.RandomState, vocab: int, sizes, image_side: int = 0) -> tuple:
     """A synthetic corpus in the prepro_book_corpus schema
     (000_prepro_book_corpus.py:343-368): ``labels/<split>`` (n, T) uint32,
-    left-aligned sentences of 1..T words, and ``label_length/<split>``,
-    written through the port's own h5 writer.  Returns (h5, json) paths."""
+    left-aligned sentences of 1..T words, and ``label_length/<split>``;
+    with ``image_side``, the weak-paired loader's ``images/<split>`` (n, 3,
+    side, side) uint8 (DataLoaderWeakPaired.lua:72); written through the
+    port's own h5 writer.  Returns (h5, json) paths."""
     from novel_vqa_torch.core.h5 import write_h5
 
     os.makedirs(folder, exist_ok=True)
@@ -1445,6 +1498,8 @@ def write_corpus(folder: str, rs: np.random.RandomState, vocab: int, sizes) -> t
         labels[words] = rs.randint(1, vocab + 1, size=int(words.sum()))
         arrays[f"labels/{split}"] = labels
         arrays[f"label_length/{split}"] = lengths.astype(np.uint32)
+        if image_side:
+            arrays[f"images/{split}"] = rs.randint(0, 256, (n, 3, image_side, image_side), dtype=np.uint8)
     h5, meta = os.path.join(folder, "data.h5"), os.path.join(folder, "data.json")
     write_h5(h5, arrays)
     with open(meta, "w") as f:
@@ -1812,6 +1867,299 @@ def run_arch2(K, dev, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 14: Inception-v3 pool extraction at full width
+# --------------------------------------------------------------------------
+
+def run_inception(K, K2, dev, smi: str, probe: dict) -> dict:
+    """Inception-v3's 2048-d pool at 299x299, batch 32, He-init weights:
+    (a) the pipelined loop on predecoded batches, float32 (TF32 off) and
+    bf16: images/s, the forward's ms against its bound, device ms by stage,
+    the idle share; (b) the first two images' features against the port's
+    CPU fp32 forward; (c) the CLI, ``--model inception``, on synthetic PNGs
+    (center square crop, resized to 299), its rows against (a)'s forward on
+    the same decoded pixels."""
+    from novel_vqa_torch.core.h5 import H5Reader
+    from novel_vqa_torch.core.tree import tree_map
+    from novel_vqa_torch.data import images as I
+    from novel_vqa_torch.models.vision import inception
+    from novel_vqa_torch.models.vision.layers import bf16_storage_cast
+    from novel_vqa_torch.train import extract_features as X
+
+    t0 = time.perf_counter()
+    f32, size, crop, ndims = X.build_model("inception", "", "pool", SEED, device=dev)
+    if (size, crop, ndims) != (INC_SIZE, True, 2048):
+        raise AssertionError(f"inception route: size {size}, crop {crop}, {ndims} dims")
+    forwards = {"float32": f32, "bfloat16": X.Extractor(
+        bf16_storage_cast(f32.params), f32.cfg, f32.tap, f32.prepro, ndims, dev)}
+    rs = np.random.RandomState(SEED + 30)
+    batches = [(rs.randint(0, 256, (EXTRACT_BATCH, INC_SIZE, INC_SIZE, 3), dtype=np.uint8),
+                np.zeros(EXTRACT_BATCH, bool), EXTRACT_BATCH) for _ in range(INC_BATCHES)]
+    n = EXTRACT_BATCH * INC_BATCHES
+    out = {"card": smi, "model": "inception", "tap": "pool", "image_size": size, "batch": EXTRACT_BATCH,
+           "batches": INC_BATCHES, "setup_s": time.perf_counter() - t0, "routes": {}}
+    flops = inception.forward_flops(f32.cfg) * EXTRACT_BATCH
+    cpu = X.Extractor(tree_map(lambda t: t.cpu(), f32.params), f32.cfg, "pool", f32.prepro, ndims,
+                      torch.device("cpu"))
+    u8_0, miss_0 = (torch.from_numpy(a[:2]) for a in batches[0][:2])
+    ref = cpu(u8_0, miss_0)
+    for route, fwd in forwards.items():
+        K.lstm_seq.launches = K.lstm_step.launches = K2.lstm_seq2.launches = 0
+        runs = []
+        for _ in range(4):  # the first warms cuDNN's heuristics and the allocator
+            got = np.empty((n, ndims), np.float32)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            X.run_pipelined_extraction([(fwd, size, crop, ndims)], [""] * n, EXTRACT_BATCH, 1,
+                                       feats=got, depth=4, predecoded=batches)
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end))
+        launches = {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches,
+                    "lstm_seq2": K2.lstm_seq2.launches}
+        got_t = torch.from_numpy(got)
+        if not bool(torch.isfinite(got_t).all()) or float(got_t.min()) < 0:
+            raise AssertionError(f"inception {route}: pool features not finite or negative")
+        errs_ = [rel_err(got_t[r], ref[r]) for r in range(2)]
+        tol = INC_REL_TOL[route]
+        if not max(errs_) <= tol:
+            raise AssertionError(f"inception {route}: features off the CPU forward by {errs_} > {tol}")
+        loop_ms = statistics.median(runs[1:])
+        d_u8, d_miss = (torch.from_numpy(a).to(dev) for a in batches[-1][:2])
+        forward_ms = time_ms(lambda: fwd(d_u8, d_miss), reps=10, warmup=2)
+        weight_bytes = sum(t.numel() * t.element_size() for t in
+                           [u["conv"]["w"] for u in inception.iter_conv_bn(fwd.params)])
+        bound_ms, bound_by = bound(flops, d_u8.numel() + weight_bytes + 4 * EXTRACT_BATCH * ndims,
+                                   FP32_FLOPS if route == "float32" else BF16_FLOPS)
+        prof = stage_profile(lambda: fwd(d_u8, d_miss))
+        out["routes"][route] = {
+            "images_per_s": n / (loop_ms / 1e3), "loop_ms": loop_ms, "loop_runs_ms": runs,
+            "ms_per_batch": loop_ms / INC_BATCHES, "forward_ms_per_batch": forward_ms,
+            "bound_ms_per_batch": bound_ms, "bound_by": bound_by, "gflop_per_batch": flops / 1e9,
+            "rel_err_vs_cpu_fp32": errs_, "tol": tol, "launches": launches, "profile": prof,
+            "device_idle_share": 1 - prof["device_ms_total"] / forward_ms,
+        }
+    out["cpu_reference"] = "the port's fp32 forward on the CPU, images 0-1, rel per row"
+
+    if not (probe["native"] or probe["pil"]):
+        out["cli"] = {"ran": False, "reason": "no decoder on this machine"}
+        return out
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "img")
+        names = write_images(folder, INC_CLI_IMAGES, np.random.RandomState(SEED + 31), copies=INC_CLI_COPIES)
+        with open(os.path.join(tmp, "data_prepro.json"), "w") as f:
+            json.dump({"unique_img_test": names}, f)
+        store = os.path.join(tmp, "inc.h5")
+        t0 = time.perf_counter()
+        X.main(["--input_json", os.path.join(tmp, "data_prepro.json"), "--image_root", folder,
+                "--seed", str(SEED), "--model", "inception", "--out_name", store, "--device", dev.type])
+        wall = time.perf_counter() - t0
+        with H5Reader(store) as h5:
+            keys, feats = h5.keys(), h5["images_test"]
+        if keys != ["images_test"] or feats.shape != (INC_CLI_IMAGES, 2048) or not np.isfinite(feats).all():
+            raise AssertionError(f"inception CLI: store {keys} {feats.shape}")
+        first = INC_CLI_IMAGES - INC_CLI_COPIES
+        if not np.array_equal(feats[first:], feats[:INC_CLI_COPIES]):
+            raise AssertionError("inception CLI: identical images gave different rows")
+        pool = I.DecodePool(INC_SIZE, center_crop_square=True)
+        try:
+            decoded = list(pool.iter_batches([os.path.join(folder, n_) for n_ in names], EXTRACT_BATCH))
+        finally:
+            pool.close()
+        rows = [f32(torch.from_numpy(u8).to(dev), torch.from_numpy(m).to(dev))[:real].cpu()
+                for u8, m, real in decoded]
+        err = rel_err(torch.from_numpy(feats), torch.cat(rows))
+        if not err <= INC_REL_TOL["float32"]:
+            raise AssertionError(f"inception CLI features off (a)'s forward by {err}")
+        out["cli"] = {"ran": True, "decoder": pool.decoder, "images": INC_CLI_IMAGES, "wall_s": wall,
+                      "images_per_s_wall": INC_CLI_IMAGES / wall, "rel_err_vs_forward": err}
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 15: the weak-paired CNN+AE trainer at the reference width
+# --------------------------------------------------------------------------
+
+def wp_evals(iters: int, every: int) -> int:
+    """The validations of one ``train_weakpaired_ae`` run: its cadence."""
+    return sum(1 for it in range(iters) if it % every == 0 or it == iters - 1)
+
+
+def wp_run(dev, h5: str, meta: str, ckpt: str, variant: str, trunk: str, iters: int, finetune_after: int,
+           extra=()) -> dict:
+    """One ``train_weakpaired_ae`` CLI run at the phase's width; its json
+    log, every logged loss finite and one validation per cadence point."""
+    from novel_vqa_torch.train import train_weakpaired_ae
+
+    t0 = time.perf_counter()
+    train_weakpaired_ae.main(["--input_h5", h5, "--input_json", meta, "--checkpoint_path", ckpt,
+                              "--variant", variant, "--cnn_arch", trunk,
+                              "--nhimage", "4096" if trunk == "vgg16" else "2048",
+                              "--rnn_size", str(WP_E), "--input_encoding_size", str(WP_E),
+                              "--batch_size", str(WP_BATCH), "--image_size", str(WP_SIDE),
+                              "--crop_size", str(WP_CROP), "--max_iters", str(iters),
+                              "--finetune_cnn_after", str(finetune_after),
+                              "--save_checkpoint_every", str(WP_EVERY), "--losses_log_every", "1",
+                              "--device", dev.type, *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(ckpt, "model_id.json")) as f:
+        log = json.load(f)
+    losses = list(log["loss_history"].values()) + list(log["val_loss_history"].values())
+    if (len(log["loss_history"]) != iters or len(log["val_loss_history"]) != wp_evals(iters, WP_EVERY)
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"train_weakpaired_ae {variant}/{trunk}: {log['loss_history']}, "
+                             f"{log['val_loss_history']}")
+    return {"wall_s": wall, "loss_history": log["loss_history"], "val_loss_history": log["val_loss_history"]}
+
+
+def run_weakpaired(K, dev, smi: str) -> dict:
+    """The weak-paired trainer at bench.py's reference width: the mean LSTM
+    vector of a random text AE over the phase's corpus (compute_mean_vectors,
+    its step launches and its mean against the plain route's); the vqa_arch
+    VGG-16 CLI run through both finetune phases, validation's step launches
+    against the count its loop implies; each phase's step (CUDA events, its
+    device time by kernel, idle share, peak memory) and the trunk in both
+    compute dtypes, a validation batch; a short null run on the Inception
+    trunk."""
+    from novel_vqa_torch.core.checkpoint import save_npz
+    from novel_vqa_torch.core.convert import ae_params_to_numpy
+    from novel_vqa_torch.core.h5 import H5Reader
+    from novel_vqa_torch.data.weakpaired import (
+        WeakPairedLoader,
+        center_crop_offsets,
+        prepro_wp_images,
+        random_crop_offsets,
+    )
+    from novel_vqa_torch.models.seq import autoencoder as ae
+    from novel_vqa_torch.train import compute_mean_vectors
+    from novel_vqa_torch.train import train_weakpaired_ae as W
+
+    out = {"card": smi, "vocab": WP_V, "width": WP_E, "batch": WP_BATCH, "crop": WP_CROP, "iters": WP_ITERS,
+           "finetune_cnn_after": WP_FINETUNE_AFTER}
+    val_batches = ae_eval_batches(WP_N_VAL, WP_BATCH, W.WPTrainConfig.val_sentences_use)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rs = np.random.RandomState(SEED + 40)
+        h5, meta = write_corpus(os.path.join(tmp, "corpus"), rs, WP_V,
+                                {"train": WP_N_TRAIN, "val": WP_N_VAL, "test": WP_N_VAL}, image_side=WP_SIDE)
+        out["setup_s"] = time.perf_counter() - t0
+
+        # the mean LSTM sentence vector the vqa_arch run reads, from a text AE
+        text_cfg = ae.AEConfig(vocab_size=WP_V, input_encoding_size=WP_E, rnn_size=WP_E, seq_length=T)
+        text_ae = os.path.join(tmp, "text_ae.npz")
+        save_npz(text_ae, ae_params_to_numpy(ae.init_params(text_cfg, torch.Generator().manual_seed(SEED + 41),
+                                                             "cpu")), meta={"cfg": text_cfg._asdict()})
+        mean_argv = ["lstm", "--ae_model", text_ae, "--input_h5", h5, "--input_json", meta,
+                     "--batch_size", str(MV_BATCH), "--device", dev.type]
+        K.lstm_step.launches = 0
+        compute_mean_vectors.main(mean_argv + ["--out", os.path.join(tmp, "lstm_mean.h5")])
+        torch.cuda.synchronize()
+        mv_launches = K.lstm_step.launches
+        expected = -(-WP_N_TRAIN // MV_BATCH) * T  # one layer, T steps per batch, the last one wraps
+        if mv_launches != expected:
+            raise AssertionError(f"compute_mean_vectors: {mv_launches} step launches, expected {expected}")
+        with mock.patch.object(K, "lstm_step", K.lstm_step_plain):
+            compute_mean_vectors.main(mean_argv + ["--out", os.path.join(tmp, "lstm_mean_plain.h5")])
+        with H5Reader(os.path.join(tmp, "lstm_mean.h5")) as f, \
+                H5Reader(os.path.join(tmp, "lstm_mean_plain.h5")) as g:
+            mean, mean_plain = f["mean_vector"], g["mean_vector"]
+        err = float(np.abs(mean - mean_plain).max())
+        if mean.shape != (1, 2 * WP_E) or not err <= TOL["atol"]:
+            raise AssertionError(f"mean LSTM vector {mean.shape} off the plain route's by {err}")
+        out["mean_vectors"] = {"launches": mv_launches, "expected": expected, "batch": MV_BATCH,
+                               "sentences": WP_N_TRAIN, "max_abs_err_vs_plain": err}
+
+        # the vqa_arch VGG-16 run through both phases; its validations
+        per_val_batch = T + (T + 1)  # encoder, then decoder steps; one layer
+        K.lstm_seq.launches = K.lstm_step.launches = 0
+        run = wp_run(dev, h5, meta, os.path.join(tmp, "wp"), "vqa_arch", "vgg16", WP_ITERS, WP_FINETUNE_AFTER,
+                     ["--lstm_average_path", os.path.join(tmp, "lstm_mean.h5")])
+        evals = wp_evals(WP_ITERS, WP_EVERY)
+        launches = {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches}
+        expected = {"lstm_seq": 0, "lstm_step": evals * val_batches * per_val_batch}
+        if launches != expected:
+            raise AssertionError(f"train_weakpaired_ae: launches {launches}, expected {expected}")
+        out["run"] = {**run, "launches": launches, "evals": evals, "val_batches_per_eval": val_batches,
+                      "launches_per_val_batch": per_val_batch}
+        out["launches_val"] = launches["lstm_step"]
+
+        # each phase's step, the trunk in both dtypes, a validation batch
+        loader = WeakPairedLoader(h5, meta)
+        labels, images, _ = loader.get_batch_with_images("train", WP_BATCH)
+        val_labels, val_images, _ = loader.get_batch_with_images("val", WP_BATCH)
+        loader.close()
+        cfg = ae.AEConfig(vocab_size=WP_V, input_encoding_size=WP_E, rnn_size=WP_E, seq_length=T,
+                          variant="vqa_arch", nhimage=4096)
+        ae_params = ae.init_params(cfg, torch.Generator().manual_seed(SEED + 42), dev)
+        seq = torch.from_numpy(labels).to(dev)
+        u8 = torch.from_numpy(images).to(dev)
+        offsets = torch.from_numpy(random_crop_offsets(np.random.default_rng(SEED), WP_BATCH, WP_SIDE,
+                                                       WP_CROP)).to(dev)
+        zeros = torch.zeros(WP_BATCH, 2 * WP_E, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+        steps, trunk_ms = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            opt = W.WPTrainConfig(compute_dtype=dtype, rnn_size=WP_E, input_encoding_size=WP_E,
+                                  image_size=WP_SIDE, crop_size=WP_CROP, device=dev.type)
+            cnn_params, cnn_apply, _ = W.build_cnn(opt, False, torch.Generator().manual_seed(SEED + 43), dev)
+            ae_tx, cnn_tx = W.make_ae_tx(opt), W.make_cnn_tx(opt)
+            ae_state, cnn_state = ae_tx.init(ae_params), cnn_tx.init(cnn_params)
+            step = W.make_train_step(cfg, "vqa_arch", WP_CROP, cnn_apply, ae_tx, cnn_tx)
+            for finetune in (False, True):
+                def run_step():
+                    return step(False, finetune, ae_params, ae_state, cnn_params, cnn_state, u8, offsets, seq,
+                                zeros, seq, gen)
+
+                run_step()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                loss = run_step()[4]
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated(dev)
+                ms = time_ms(run_step, reps=10, warmup=1)
+                prof = profile(run_step, top=10)
+                steps[f"{dtype}_{'finetune' if finetune else 'frozen'}"] = {
+                    "ms": ms, "peak_memory_bytes": peak, "loss": float(loss), "profile": prof,
+                    "device_idle_share": 1 - prof["device_ms_total"] / ms}
+            x = prepro_wp_images(u8, offsets, WP_CROP)
+            with torch.no_grad():
+                trunk_ms[dtype] = time_ms(lambda: cnn_apply(cnn_params, x), reps=10, warmup=2)
+            if dtype == "float32":
+                val_u8 = torch.from_numpy(val_images).to(dev)
+                val_seq = torch.from_numpy(val_labels).to(dev)
+                val_off = torch.from_numpy(center_crop_offsets(WP_BATCH, WP_SIDE, WP_CROP)).to(dev)
+
+                def val():
+                    return W.val_step(cfg, "vqa_arch", WP_CROP, cnn_apply, ae_params, cnn_params, val_u8,
+                                      val_off, val_seq)
+
+                got = val()
+                with mock.patch.object(K, "lstm_step", K.lstm_step_plain):
+                    ref = val()
+                if not torch.allclose(got, ref, **TOL):
+                    raise AssertionError(f"weak-paired val NLL through the step kernel {float(got)} != "
+                                         f"plain {float(ref)}")
+                out["val_nll_vs_plain"] = {"kernel": float(got), "plain": float(ref),
+                                           "abs_err": abs(float(got - ref))}
+                out["val_batch_ms"] = time_ms(val, reps=5, warmup=1)
+                out["val_batch_profile"] = profile(val, top=6)
+            del cnn_params, cnn_state, step
+        out["steps"] = steps
+        out["trunk_forward_ms"] = trunk_ms
+        out["step_unit"] = f"ms per train step (CUDA events, median of 10), batch {WP_BATCH}"
+
+        # a short null run on the Inception trunk at crop 224
+        K.lstm_step.launches = 0
+        inc = wp_run(dev, h5, meta, os.path.join(tmp, "wp_inc"), "null", "inception", WP_INC_ITERS,
+                     WP_INC_FINETUNE_AFTER)
+        expected = wp_evals(WP_INC_ITERS, WP_EVERY) * val_batches * ((T + 2) + (T + 1))
+        if K.lstm_step.launches != expected:
+            raise AssertionError(f"inception null run: {K.lstm_step.launches} step launches, expected {expected}")
+        out["inception_null_run"] = {**inc, "launches": K.lstm_step.launches}
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seq2-mutants", action="store_true",
@@ -1883,6 +2231,9 @@ def main(argv=None) -> int:
     emit({"phase": "ae", **ae_out})
     arch2_out = run_arch2(K, dev, smi)
     emit({"phase": "arch2", **arch2_out})
+    emit({"phase": "inception", **run_inception(K, K2, dev, smi, probe)})
+    wp_out = run_weakpaired(K, dev, smi)
+    emit({"phase": "weakpaired", **wp_out})
 
     def entry(name, rows, launches, replaces, source=SOURCE):
         timed = [r for r in rows if "kernel_ms" in r]
@@ -1915,10 +2266,13 @@ def main(argv=None) -> int:
               SEQ2_REPLACES, SEQ2_SOURCE),
     ]
     kernels[2]["replay_err_ratio"] = max(max(r["replay_err_ratio"].values()) for r in seq2_rows)
-    # the step kernel's launches on this slice's paths: one arch2 eval run
-    # (18 per batch) and one AE training run's validations
+    # the step kernel's launches on the later slices' paths: one arch2 eval
+    # run (18 per batch), one AE training run's validations, one weak-paired
+    # run's validations (33 per batch) and one compute_mean_vectors run
     kernels[1]["launches_arch2_eval"] = arch2_out["launches_eval"]
     kernels[1]["launches_ae_val"] = ae_out["launches_val"]
+    kernels[1]["launches_wp_val"] = wp_out["launches_val"]
+    kernels[1]["launches_mean_vectors"] = wp_out["mean_vectors"]["launches"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})

@@ -58,19 +58,38 @@ def lstm_params_to_numpy(
     return tree_map(_to_numpy, list(layers))
 
 
-def vgg_params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
-    """JAX VGG params (HWIO convs, (in, out) linears) as numpy arrays -> the
-    port's tree of float32 tensors on ``device`` (OIHW convs)."""
-    to_t = _to_tensor(device)
-    out = {k: tree_map(to_t, v) for k, v in tree.items() if k != "conv"}
-    out["conv"] = [{"w": to_t(np.transpose(c["w"], (3, 2, 0, 1))), "b": to_t(c["b"])}  # HWIO -> OIHW
-                   for c in tree["conv"]]
-    return out
+def _leaf_from_hwio(device):
+    device = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.kind == "f":
+            a = a.astype(np.float32)
+        if a.ndim == 4:
+            a = np.transpose(a, (3, 2, 0, 1))  # HWIO -> OIHW
+        return torch.tensor(np.ascontiguousarray(a), device=device)
+
+    return leaf
 
 
-def vgg_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Inverse of :func:`vgg_params_from_numpy`: HWIO convs, float32."""
-    out = {k: tree_map(_to_numpy, v) for k, v in params.items() if k != "conv"}
-    out["conv"] = [{"w": np.ascontiguousarray(np.transpose(_to_numpy(c["w"]), (2, 3, 1, 0))),
-                    "b": _to_numpy(c["b"])} for c in params["conv"]]
-    return out
+def _leaf_to_hwio(t: torch.Tensor) -> np.ndarray:
+    a = _to_numpy(t)
+    return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0))) if a.ndim == 4 else a
+
+
+def vision_params_from_numpy(tree: Any, device) -> Any:
+    """JAX vision params (VGG, Inception, or the weak-paired trainer's
+    ``cnn`` tree and its optimizer states) as numpy arrays -> the port's
+    tensors on ``device``: every 4-D leaf is a conv weight, HWIO in the JAX
+    package and OIHW in the port; float leaves become float32, others (an
+    optimizer's step count) keep their dtype."""
+    return tree_map(_leaf_from_hwio(device), tree)
+
+
+def vision_params_to_numpy(params: Any) -> Any:
+    """Inverse of :func:`vision_params_from_numpy`: HWIO convs."""
+    return tree_map(_leaf_to_hwio, params)
+
+
+vgg_params_from_numpy = inception_params_from_numpy = vision_params_from_numpy
+vgg_params_to_numpy = inception_params_to_numpy = vision_params_to_numpy

@@ -5,7 +5,8 @@ The host decodes and resizes to uint8 RGB (the native C++ decoder of
 ``native/``, built at first use, or PIL) and ships uint8 to the device, a
 quarter of float32's bytes; the float conversion, channel reorder and mean
 subtraction run on the device (``vgg_device_prepro``,
-``torchvision_device_prepro``), which return NCHW float32.
+``inception_device_prepro``, ``torchvision_device_prepro``), which return
+NCHW float32.
 
 The pixel math reproduces the reference's VGG extractor
 (002_train_vqa_arch1/001_prepro_img_vgg.lua:47-71 ``loadim``): [0,1] float
@@ -13,7 +14,9 @@ load -> bilinear scale to 224x224 -> grayscale replicate / RGBA drop -> x255
 -> channels (B-103.939, G-116.779, R-123.68).  A missing file gives the
 reference's literal quirk image: its mean fill is built before the x255 and
 the channel swap and flows through them (:52-57), giving the channels
-``VGG_MISSING_BGR``.  ``inception_device_prepro`` comes with Inception.
+``VGG_MISSING_BGR``.  The Inception extractor decodes a center square
+crop and scales it to 299x299, then (x - 128) * 0.0078125 in RGB order
+(001_prepro_img_inc.lua:40-57).
 """
 
 from __future__ import annotations
@@ -141,6 +144,12 @@ def vgg_device_prepro(u8_rgb: torch.Tensor, missing: torch.Tensor) -> torch.Tens
     bgr = u8_rgb.permute(0, 3, 1, 2).flip(1).float() - _channels(VGG_MEAN_BGR, u8_rgb)
     quirk = _channels(VGG_MISSING_BGR, u8_rgb)
     return torch.where(missing.view(-1, 1, 1, 1), quirk, bgr)
+
+
+def inception_device_prepro(u8_rgb: torch.Tensor, missing: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, 3) uint8 RGB -> (N, 3, H, W) float32, (x - 128) * 0.0078125,
+    RGB order.  A missing file is its zero image, as decoded."""
+    return (u8_rgb.permute(0, 3, 1, 2).float() - 128.0) * 0.0078125
 
 
 def torchvision_device_prepro(u8_rgb: torch.Tensor, missing: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Image-feature extraction CLI, on the card by default: port of
 ``novel_vqa_tpu.train.extract_features`` (002_train_vqa_arch1/
-001_prepro_img_{vgg,ef}.lua).
+001_prepro_img_{vgg,inc,ef}.lua).
 
 Reads the ``unique_img_{train,val,test}`` lists of data_prepro.json, decodes
 and resizes each image on the host, runs the CNN on the device, taps the
@@ -19,11 +19,12 @@ batches are queued, so uploads, the forward and the copies back overlap.
 Same flags as the JAX CLI plus ``--device``.  ``--compute_dtype float32``
 (default) runs in true fp32, TF32 off in a scope the extraction owns;
 ``bfloat16`` stores weights and activations in bf16 (within 1e-2 of fp32).
-``--weights`` takes a converted ``.npz`` (``train/import_caffe.py`` or the
-JAX package's); without one the net is randomly initialised from ``--seed``
-(throughput runs and smoke tests only: a warning is printed).
-``--model inception`` raises until Inception is ported (ROADMAP A10).  With
-more than one card it still runs on one (``--device``); sharded extraction
+``--model inception`` taps Inception-v3's 2048-d global pool at 299x299
+from a center square crop.  ``--weights`` takes a converted ``.npz``
+(``train/import_caffe.py``, ``import_t7.py``, ``import_pth.py`` or the JAX
+package's); without one the net is randomly initialised from ``--seed``
+(throughput runs and smoke tests only: a warning is printed).  With more
+than one card it still runs on one (``--device``); sharded extraction
 comes with ROADMAP A13.
 
     python -m novel_vqa_torch.train.extract_features --input_json data_prepro.json \\
@@ -49,15 +50,17 @@ from novel_vqa_torch.core.config import parse_config
 from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.core.h5 import write_h5
 from novel_vqa_torch.data import images as I
-from novel_vqa_torch.models.vision import vgg
+from novel_vqa_torch.models.vision import inception, vgg
 from novel_vqa_torch.models.vision.layers import bf16_storage_cast, fp32_exact
+
+_NETS = {vgg.VGGConfig: vgg, inception.InceptionConfig: inception}
 
 
 @dataclasses.dataclass
 class ExtractConfig:
     input_json: str = "data_prepro.json"
     image_root: str = ""
-    model: str = "vgg16"  # vgg16 | vgg19 | vggembed (inception: ROADMAP A10)
+    model: str = "vgg16"  # vgg16 | vgg19 | vggembed | inception
     weights: str = ""  # converted .npz weight dump ('' = random init)
     model2: str = ""  # optional second net for early fusion
     weights2: str = ""
@@ -73,28 +76,30 @@ class ExtractConfig:
     limit: int = -1  # cap images per split (smoke tests)
     image_size: int = 0  # override the net's input resolution (smoke tests)
     compute_dtype: str = "float32"  # float32 | bfloat16
-    # "reference" = BGR 0-255 mean-subtracted, for caffe weights;
-    # "torchvision" = ImageNet normalisation, for torchvision weights
+    # "reference" = the pipeline of caffe/t7 weights (VGG: BGR 0-255
+    # mean-subtracted; Inception: (x - 128) / 128); "torchvision" = ImageNet
+    # normalisation, for weights imported by import_pth.py
     prepro: str = "reference"
     device: str = "cuda"
 
 
 class Extractor:
     """One net's forward: (N, H, W, 3) uint8 and an (N,) bool missing mask
-    on ``device`` -> (N, ndims) float32 features on ``device``.  The
-    params' dtype is the route; TF32 is off for the forward (it touches
-    only the float32 route's products)."""
+    on ``device`` -> (N, ndims) float32 features on ``device``.  The config
+    names the net (VGG or Inception); the params' dtype is the route; TF32
+    is off for the forward (it touches only the float32 route's
+    products)."""
 
-    def __init__(self, params, cfg: vgg.VGGConfig, tap: str, prepro: Callable,
-                 ndims: int, device: torch.device):
+    def __init__(self, params, cfg, tap: str, prepro: Callable, ndims: int, device: torch.device):
         self.params, self.cfg, self.tap, self.prepro = params, cfg, tap, prepro
         self.ndims, self.device = ndims, device
+        self.net = _NETS[type(cfg)]
 
     def __call__(self, u8: torch.Tensor, missing: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode(), fp32_exact():
             with record_function("extract.prepro"):
                 x = self.prepro(u8, missing)
-            return vgg.apply(self.params, self.cfg, x, self.tap).float()
+            return self.net.apply(self.params, self.cfg, x, self.tap).float()
 
 
 def build_model(
@@ -104,21 +109,27 @@ def build_model(
     """Returns (forward, decode_size, center_crop, feature_dims); ``forward``
     is an ``Extractor``.  ``image_size`` overrides the net's input
     resolution (tests and dry runs only: the reference extractors are fixed
-    at 224)."""
+    at 224 and 299)."""
     device = resolve_device(device)
     if name == "inception":
-        raise NotImplementedError("--model inception is not ported yet (ROADMAP A10, Inception-v3)")
-    if name not in ("vgg16", "vgg19", "vggembed"):
-        raise ValueError(f"unknown --model {name}")
-    cfg = vgg.VGGConfig(arch=name, image_size=image_size or 224)
-    if name == "vggembed":
-        # the early-fusion embedding net's 4800-d module-39 tap
-        # (001_prepro_img_ef.lua:99); pair with --model2 vgg19 for the
-        # 8896-d ef store (:99-101)
-        tap, ndims = "embed", cfg.embed_dim
+        cfg = inception.InceptionConfig(image_size=image_size or 299)
+        if cfg.image_size < inception.MIN_IMAGE_SIZE:
+            raise ValueError(f"--image_size {cfg.image_size}: Inception-v3 needs at least "
+                             f"{inception.MIN_IMAGE_SIZE}")
+        net, tap, ndims, crop, reference = inception, "pool", 2048, True, I.inception_device_prepro
+    elif name in ("vgg16", "vgg19", "vggembed"):
+        cfg = vgg.VGGConfig(arch=name, image_size=image_size or 224)
+        net, crop, reference = vgg, False, I.vgg_device_prepro
+        if name == "vggembed":
+            # the early-fusion embedding net's 4800-d module-39 tap
+            # (001_prepro_img_ef.lua:99); pair with --model2 vgg19 for the
+            # 8896-d ef store (:99-101)
+            tap, ndims = "embed", cfg.embed_dim
+        else:
+            ndims = {"fc7": 4096, "fc6": 4096, "fc8": cfg.num_classes}[tap]
     else:
-        ndims = {"fc7": 4096, "fc6": 4096, "fc8": cfg.num_classes}[tap]
-    prepro = {"reference": I.vgg_device_prepro, "torchvision": I.torchvision_device_prepro}.get(prepro_mode)
+        raise ValueError(f"unknown --model {name}")
+    prepro = {"reference": reference, "torchvision": I.torchvision_device_prepro}.get(prepro_mode)
     if prepro is None:
         raise ValueError(f"unknown --prepro {prepro_mode}")
     if compute_dtype not in ("float32", "bfloat16"):
@@ -126,18 +137,18 @@ def build_model(
 
     if weights:
         from novel_vqa_torch.core.checkpoint import load_npz, unflatten_like
-        from novel_vqa_torch.core.convert import vgg_params_from_numpy
+        from novel_vqa_torch.core.convert import vision_params_from_numpy
 
         flat, _ = load_npz(weights)
-        params = vgg_params_from_numpy(unflatten_like(vgg.param_template(cfg), flat), device)
+        params = vision_params_from_numpy(unflatten_like(net.param_template(cfg), flat), device)
     else:
         print(f"WARNING: no --weights for {name}; using RANDOM weights "
               "(features are meaningless for accuracy)", file=sys.stderr)
-        params = vgg.init_params(cfg, torch.Generator().manual_seed(seed), device)
+        params = net.init_params(cfg, torch.Generator().manual_seed(seed), device)
     if compute_dtype == "bfloat16":
         params = bf16_storage_cast(params)
     forward = Extractor(params, cfg, tap, prepro, ndims, device)
-    return forward, cfg.image_size, False, ndims
+    return forward, cfg.image_size, crop, ndims
 
 
 def _run_one(forward: Extractor, batches, depth: int, feats: np.ndarray, col: int) -> None:

@@ -106,7 +106,7 @@ def test_bf16_route_within_1e2_of_float32():
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    ({"name": "inception"}, NotImplementedError, "ROADMAP A10"),
+    ({"name": "inception", "image_size": 64}, ValueError, "at least 75"),
     ({"name": "resnet"}, ValueError, "unknown --model"),
     ({"compute_dtype": "fp8"}, ValueError, "compute_dtype"),
     ({"prepro_mode": "caffe2"}, ValueError, "prepro"),

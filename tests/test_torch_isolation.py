@@ -50,6 +50,8 @@ def test_port_imports_without_nvcc_jax_or_card(tmp_path):
         "import novel_vqa_torch.eval.drivers, novel_vqa_torch.eval.demo\n"
         "import novel_vqa_torch.train.train_text_ae, novel_vqa_torch.train.convert_ae\n"
         "import novel_vqa_torch.train.train_vqa_arch2, novel_vqa_torch.train.eval_vqa_arch2\n"
+        "import novel_vqa_torch.train.train_weakpaired_ae, novel_vqa_torch.train.compute_mean_vectors\n"
+        "import novel_vqa_torch.train.import_t7, novel_vqa_torch.train.import_pth\n"
         "from novel_vqa_torch.data import images, native_images\n"
         "from novel_vqa_torch.kernels import build, lstm\n"
         "xs = torch.zeros(3, 2, 4); m = torch.ones(3, 2)\n"
