@@ -127,7 +127,27 @@ Phases, each printing one JSON line:
      validation batch (its NLL within 1e-5 of the plain step's); a short
      null run on the Inception trunk at crop 224 (35 launches per
      validation batch).
-Phases 9-15 print the card's name and power limit on their lines.
+ 16. lf: ``lf_ensemble compute`` at the reference arch1 width over the
+     train slice's train/val/test sizes for two member nets, each with its
+     own store and seeded checkpoint (VGG: 4096-d fc7; Inception: 2048-d
+     pool at ``--nhimage 2048``), VGG in both store modes (scores within
+     1e-5): the seq launches per run (2 per batch), each split's first
+     batch within 1e-4 of the plain LSTM, the ms per split (host clock and
+     CUDA events) and the process's RSS; ``eval``'s OE and MC JSONs against
+     the answers counted here from the scores read back; a second VGG
+     compute replaces its datasets and keeps the others;
+ 17. pipeline: the port's ``run_all`` on one config of nine stages, from a
+     synthetic raw VQA v1 tree to accuracy (vqa_preprocessing,
+     prepro_book_corpus, train_text_ae, convert_ae, prepro_vqa with the
+     nltk token method, extract_features on synthetic PNGs, train_vqa_arch1
+     from the converted AE, eval_vqa_arch1, evaluate) at the AE-initialised
+     arch1's width (rnn_layer 1, E = H = 512, 4096-d fc7, 1000 answers):
+     each stage's wall seconds and launches against its loop's count,
+     every declared output, the accuracies against a count made here, a
+     second run that skips every stage, and which of NLTK, scikit-learn
+     and h5py this machine has (the stages that need them run in the CPU
+     tests).
+Phases 9-17 print the card's name and power limit on their lines.
 Then a line with nvidia-smi's name and power limit, one JSON line listing
 every kernel, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without a card it exits non-zero at
@@ -147,6 +167,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import resource
 import statistics
 import struct
 import subprocess
@@ -241,6 +262,20 @@ WP_ITERS, WP_FINETUNE_AFTER, WP_EVERY = 20, 10, 10
 WP_N_TRAIN, WP_N_VAL = WP_ITERS * WP_BATCH, 40
 WP_INC_ITERS, WP_INC_FINETUNE_AFTER = 4, 2
 MV_BATCH = 256
+# the lf phase: lf_ensemble compute at the reference arch1 width over the
+# train slice's split sizes, for two member nets with their own stores
+# (VGG's 4096-d fc7 and Inception's 2048-d pool)
+LF_SIZES = {"train": N_TRAIN, "val": N_VAL, "test": N_TEST_TRAIN}
+LF_INC_F = 2048
+# the pipeline phase: run_all over nine stages at the width of
+# run_all.example_config()'s AE-initialised arch1 (rnn_layer 1, E = H =
+# 512, VGG-16's 4096-d fc7 at 224, 1000 answers, T=16, the AE's and the
+# trainers' default batches); cut: the raw data (VQA v1 ~248k train
+# questions, 82k images; BookCorpus ~74M sentences) and the iterations
+PL_E, PL_F, PL_NUM_ANS, PL_IMAGE_SIZE = 512, F, O, EXTRACT_SIZE
+PL_WORDS, PL_ANSWERS, PL_SENTENCES, PL_CORPUS_VAL, PL_CORPUS_TEST = 1000, 1100, 3000, 500, 100
+PL_TRAIN_Q, PL_TEST_Q, PL_NUM_VAL, PL_TRAIN_IMG, PL_TEST_IMG = 1500, 600, 500, 60, 40
+PL_AE_ITERS, PL_VQA_ITERS, PL_VQA_EVERY = 4, 4, 2
 
 
 def emit(obj) -> None:
@@ -2160,6 +2195,410 @@ def run_weakpaired(K, dev, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 16: the late-fusion ensemble at the reference width
+# --------------------------------------------------------------------------
+
+def peak_rss_kb() -> int:
+    """The process's peak resident set so far (``getrusage``, kB on Linux)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+
+def rss_kb() -> int:
+    """The process's resident set now (/proc/self/statm), kB."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") // 1024
+
+
+def lf_oe_mc(scores: np.ndarray, mc_ans: np.ndarray):
+    """The ensemble's answers counted here: the OE argmax over all answers
+    and the best of each row's non-zero choices (the OE answer where it has
+    none), 1-indexed."""
+    pred = scores.argmax(axis=1) + 1
+    mc = pred.copy()
+    for i, row in enumerate(mc_ans):
+        valid = row[row != 0].astype(np.int64)
+        if valid.size:
+            mc[i] = valid[np.argmax(scores[i, valid - 1])]
+    return pred, mc
+
+
+def run_lf(K, dev, smi: str) -> dict:
+    """``lf_ensemble compute`` at the reference arch1 width over the train
+    slice's three splits for two member nets, each with its own store and
+    seeded checkpoint (VGG: 4096-d fc7; Inception: 2048-d pool at
+    ``--nhimage 2048``), VGG in both store modes; the seq launches per run,
+    each split's first batch against the plain LSTM, the ms per split (host
+    clock and CUDA events) and the process's RSS; then ``eval`` against the
+    answers counted here from the scores read back, and a second VGG
+    compute that replaces its datasets and keeps the others."""
+    from novel_vqa_torch.core.checkpoint import arch1_to_flat, save_flat_h5
+    from novel_vqa_torch.core.convert import arch1_params_to_numpy
+    from novel_vqa_torch.core.h5 import H5Reader, write_h5
+    from novel_vqa_torch.data.vqa import VQAData
+    from novel_vqa_torch.models.vqa import arch1
+    from novel_vqa_torch.train import lf_ensemble
+
+    out = {"card": smi, "sizes": LF_SIZES, "batch": BATCH, "runs": {}}
+    rs = np.random.RandomState(SEED + 40)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_split(tmp, rs, LF_SIZES)
+        ques, meta = os.path.join(tmp, "data_prepro.h5"), os.path.join(tmp, "data_prepro.json")
+        inc = os.path.join(tmp, "data_img_inc.h5")
+        inc_feats = np.maximum(rs.randn(N_IMG, LF_INC_F), 0).astype(np.float32)
+        write_h5(inc, {f"images_{split}": inc_feats for split in LF_SIZES})
+        nets = {"VGG": (os.path.join(tmp, "data_img.h5"), F), "Inception": (inc, LF_INC_F)}
+        models = {}  # name -> (cfg, params, lstm.h5); VGG_second replaces VGG's scores
+        for seed, (name, prefix) in enumerate((("VGG", "VGG"), ("Inception", "Inception"),
+                                               ("VGG_second", "VGG")), SEED + 41):
+            cfg = arch1.Arch1Config(vocab_size=V, input_encoding_size=E, rnn_size=H, rnn_layer=L,
+                                    nhimage=nets[prefix][1], common_embedding_size=C, num_output=O)
+            params = arch1.init_params(cfg, torch.Generator().manual_seed(seed), device=dev)
+            path = os.path.join(tmp, f"{name}.h5")
+            save_flat_h5(path, arch1_to_flat(arch1_params_to_numpy(params)))
+            models[name] = (cfg, params, path)
+        out["setup_s"] = time.perf_counter() - t0
+
+        def compute(tag, prefix, model, scores_h5, hbm, splits=",".join(LF_SIZES)):
+            real = lf_ensemble.run_full_split
+            per_split = []
+
+            def timed(*args, **kwargs):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t_split = time.perf_counter()
+                start.record()
+                res = real(*args, **kwargs)  # returns host arrays: the card is done
+                end.record()
+                end.synchronize()
+                per_split.append({"split": args[4], "host_ms": 1e3 * (time.perf_counter() - t_split),
+                                  "cuda_events_ms": start.elapsed_time(end)})
+                return res
+
+            argv = ["compute", "--input_img_h5", nets[prefix][0], "--input_ques_h5", ques, "--input_json", meta,
+                    "--model_path", models[model][2], "--out_h5", scores_h5, "--prefix", prefix,
+                    "--splits", splits, "--nhimage", str(nets[prefix][1]), "--hbm_resident", str(hbm),
+                    "--input_encoding_size", str(E), "--rnn_size", str(H), "--rnn_layer", str(L),
+                    "--common_embedding_size", str(C), "--num_output", str(O), "--batch_size", str(BATCH),
+                    "--device", dev.type]
+            K.lstm_seq.launches = K.lstm_step.launches = 0
+            rss_before, peak_before = rss_kb(), peak_rss_kb()
+            t_run = time.perf_counter()
+            with mock.patch.object(lf_ensemble, "run_full_split", timed):
+                lf_ensemble.cli(argv)
+            torch.cuda.synchronize()
+            run = {"wall_s": time.perf_counter() - t_run,
+                   "launches": {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches},
+                   "per_split": per_split, "rss_kb_before": rss_before, "rss_kb_after": rss_kb(),
+                   "peak_rss_kb_before": peak_before, "peak_rss_kb_after": peak_rss_kb()}
+            expected = {"lstm_seq": L * sum(-(-LF_SIZES[s] // BATCH) for s in splits.split(",")), "lstm_step": 0}
+            if run["launches"] != expected:
+                raise AssertionError(f"lf compute {tag}: launches {run['launches']}, expected {expected}")
+            out["runs"][tag] = run
+
+        scores_h5 = os.path.join(tmp, "outputVectors.h5")
+        compute("VGG_resident", "VGG", "VGG", scores_h5, 1)
+        compute("Inception_resident", "Inception", "Inception", scores_h5, 1)
+        stream_h5 = os.path.join(tmp, "stream.h5")
+        compute("VGG_streaming", "VGG", "VGG", stream_h5, 0)
+        keys = [f"{p}Out{s.capitalize()}" for p in nets for s in LF_SIZES]
+        with H5Reader(scores_h5) as f:
+            if sorted(f.datasets()) != sorted(keys):
+                raise AssertionError(f"lf scores file holds {f.datasets()}")
+            scores = {key: f[key] for key in keys}
+        with H5Reader(stream_h5) as f:
+            modes = max(float(np.abs(f[key] - scores[key]).max()) for key in keys if key.startswith("VGG"))
+        if modes > 1e-5:
+            raise AssertionError(f"lf compute: the two store modes' scores differ by {modes}")
+        out["store_modes_max_abs_diff"] = modes
+
+        # each split's first batch against the plain LSTM
+        worst = {}
+        with torch.inference_mode():
+            for prefix, (store_path, _) in nets.items():
+                data = VQAData(ques, store_path, meta, splits=tuple(LF_SIZES))
+                cfg, params, _ = models[prefix]
+                for split in LF_SIZES:
+                    store = data.split_store(split)
+                    tokens = torch.from_numpy(store["tokens"][:BATCH]).to(dev)
+                    image = torch.from_numpy(store["image"][store["img_pos"][:BATCH] - 1]).to(dev)
+                    ref = plain_scores(params, cfg, tokens, image).cpu().numpy()
+                    key = f"{prefix}Out{split.capitalize()}"
+                    worst[key] = float(np.abs(scores[key][:BATCH] - ref).max())
+                del data
+        if max(worst.values()) > SCORE_TOL:
+            raise AssertionError(f"lf first batches differ from the plain LSTM: {worst}")
+        out["first_batch_vs_plain"] = {"max_abs_err": worst, "tol": SCORE_TOL}
+
+        # eval against the answers counted here from the scores read back
+        res = os.path.join(tmp, "lf_result")
+        t0 = time.perf_counter()
+        lf_ensemble.cli(["eval", "--scores_h5", scores_h5, "--input_ques_h5", ques, "--input_json", meta,
+                         "--out_path", res])
+        out["eval_wall_s"] = time.perf_counter() - t0
+        with H5Reader(ques) as f:
+            qids, mc_ans = f["question_id_test"], f["MC_ans_test"]
+        with open(meta) as f:
+            ix_to_ans = json.load(f)["ix_to_ans"]
+        pred, mc_pred = lf_oe_mc(0.5 * scores["VGGOutTest"] + 0.5 * scores["InceptionOutTest"], mc_ans)
+        for task, answers in (("OpenEnded", pred), ("MultipleChoice", mc_pred)):
+            with open(os.path.join(res, f"{task}_mscoco_lstm_results.json")) as f:
+                got = json.load(f)
+            want = [{"question_id": int(q), "answer": ix_to_ans[str(int(a))]} for q, a in zip(qids, answers)]
+            if got != want:
+                raise AssertionError(f"lf eval {task}: the JSON differs from the answers counted here")
+        out["eval_equals_count"] = True
+
+        # a second compute under the VGG prefix replaces its datasets and
+        # keeps the Inception ones
+        compute("VGG_second", "VGG", "VGG_second", scores_h5, 1, splits="test")
+        with H5Reader(scores_h5) as f:
+            after = {key: f[key] for key in f.datasets()}
+        kept = sorted(after) == sorted(keys) and all(
+            np.array_equal(after[key], scores[key]) for key in keys if key != "VGGOutTest")
+        replaced = float(np.abs(after["VGGOutTest"] - scores["VGGOutTest"]).max())
+        if not kept or replaced < 1e-3:
+            raise AssertionError(f"lf second compute: kept the others {kept}, VGGOutTest moved {replaced}")
+        out["second_compute"] = {"others_kept": kept, "vggouttest_max_change": replaced}
+        out["launches_lf"] = sum(out["runs"][tag]["launches"]["lstm_seq"]
+                                 for tag in ("VGG_resident", "Inception_resident"))
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 17: the pipeline through run_all, raw VQA JSON to accuracy
+# --------------------------------------------------------------------------
+
+def write_raw_vqa(root: str, rs: np.random.RandomState) -> tuple:
+    """A raw VQA v1 tree in ``annotations/`` (the files 000_vqa_preprocessing.py
+    reads, and the val OpenEnded questions the evaluator reads), the
+    external vocabulary ``vocab.json`` and a corpus over it, and a COCO
+    image folder of PNGs (PL_TRAIN_IMG train2014, PL_TEST_IMG val2014).
+    Questions of 2-8 words; the train answers hold PL_ANSWERS distinct
+    strings, each once, and more draws from the first 20; every question
+    has ten human answers and 18 choices.  Returns (vocabulary size,
+    the val annotations)."""
+    words = [f"w{i}" for i in range(1, PL_WORDS + 1)]
+    answers = [f"ans{i}" for i in range(PL_ANSWERS)]
+    ann_dir = os.path.join(root, "annotations")
+    os.makedirs(ann_dir)
+    with open(os.path.join(root, "vocab.json"), "w") as f:
+        json.dump(words + ["UNK"], f)
+    with open(os.path.join(root, "corpus.txt"), "w") as f:
+        for n in rs.randint(3, 13, size=PL_SENTENCES):
+            f.write(" ".join(words[j] for j in rs.randint(0, PL_WORDS, size=n)) + "\n")
+    head = {"info": {}, "data_type": "mscoco", "license": {}}
+    val_anns = []
+    for subtype, n_q, n_img, qid0, img0 in (("train2014", PL_TRAIN_Q, PL_TRAIN_IMG, 1, 100),
+                                            ("val2014", PL_TEST_Q, PL_TEST_IMG, 100001, 500000)):
+        folder = os.path.join(root, "coco", subtype)
+        os.makedirs(folder)
+        for j in range(n_img):
+            write_png(os.path.join(folder, "COCO_%s_%012d.jpg" % (subtype, img0 + j)),
+                      rs.randint(0, 256, (240 + 8 * (j % 3), 320, 3), dtype=np.uint8))
+        anns, mc_ques = [], []
+        for i in range(n_q):
+            k = i if subtype == "train2014" and i < PL_ANSWERS else rs.randint(0, 20)
+            given = [answers[k]] * rs.randint(1, 11)
+            given += [answers[j] for j in rs.randint(0, 20, size=10 - len(given))]
+            rs.shuffle(given)
+            q, img = qid0 + i, img0 + rs.randint(n_img)
+            anns.append({"question_id": q, "image_id": img, "multiple_choice_answer": answers[k],
+                         "question_type": ["what is", "how many", "is the"][rs.randint(3)],
+                         "answer_type": ["other", "number", "yes/no"][rs.randint(3)],
+                         "answers": [{"answer": a, "answer_confidence": "yes", "answer_id": j + 1}
+                                     for j, a in enumerate(given)]})
+            choices = [answers[k]] + [answers[j] for j in rs.choice(PL_ANSWERS, 17, replace=False) if j != k][:17]
+            mc_ques.append({"question_id": q, "image_id": img, "multiple_choices": choices,
+                            "question": " ".join(words[j] for j in rs.randint(0, PL_WORDS, size=rs.randint(2, 9)))
+                            + "?"})
+        with open(os.path.join(ann_dir, f"mscoco_{subtype}_annotations.json"), "w") as f:
+            json.dump({**head, "data_subtype": subtype, "annotations": anns}, f)
+        with open(os.path.join(ann_dir, f"MultipleChoice_mscoco_{subtype}_questions.json"), "w") as f:
+            json.dump({**head, "data_subtype": subtype, "task_type": "Multiple-Choice", "questions": mc_ques}, f)
+        if subtype == "val2014":
+            oe_ques = [{k: v for k, v in q.items() if k != "multiple_choices"} for q in mc_ques]
+            with open(os.path.join(ann_dir, "OpenEnded_mscoco_val2014_questions.json"), "w") as f:
+                json.dump({**head, "data_subtype": subtype, "task_type": "Open-Ended", "questions": oe_ques}, f)
+            val_anns = anns
+    return len(words) + 1, val_anns
+
+
+def vqa_validations(iters: int, spd: int, every: int) -> int:
+    """The validations of one ``train_vqa_arch1`` run: its loop's cadence."""
+    it, evals = 0, 0
+    while it < iters:
+        if (it + 1) % every <= spd - 1 or it == 0:
+            evals += 1
+        it += min(spd, iters - it)
+    return evals
+
+
+def pipeline_config(root: str, dev) -> dict:
+    """The run_all config of the phase: nine stages, every path under
+    ``root``, ``--device`` on the stages that take it."""
+    def p(*parts):
+        return os.path.join(root, *parts)
+
+    device = ["--device", dev.type]
+    data = ["--input_img_h5", p("data_img.h5"), "--input_ques_h5", p("data_prepro.h5"),
+            "--input_json", p("data_prepro.json")]
+    width = ["--rnn_layer", "1", "--input_encoding_size", str(PL_E), "--rnn_size", str(PL_E)]
+    oe = p("result", "OpenEnded_mscoco_val2014_lstm_novel_new_2_results.json")
+    return {
+        "vqa_preprocessing": {
+            "args": ["--annotations_dir", p("annotations"), "--split", "1",
+                     "--output_train", p("vqa_raw_train.json"), "--output_test", p("vqa_raw_test.json")],
+            "output": p("vqa_raw_test.json")},
+        "prepro_book_corpus": {
+            "args": ["--corpus", p("corpus.txt"), "--ext_vocab", p("vocab.json"), "--num_val", str(PL_CORPUS_VAL),
+                     "--num_test", str(PL_CORPUS_TEST), "--max_length", str(T),
+                     "--output_h5", p("data.h5"), "--output_json", p("data.json")],
+            "output": p("data.h5")},
+        "train_text_ae": {
+            "args": ["--input_h5", p("data.h5"), "--input_json", p("data.json"), "--checkpoint_path", p("ae"),
+                     "--rnn_size", str(PL_E), "--input_encoding_size", str(PL_E),
+                     "--max_iters", str(PL_AE_ITERS), "--sample_print", "2"] + device,
+            "output": p("ae", "model_id.npz")},
+        "convert_ae": {
+            "args": ["--ae_model", p("ae", "model_id.npz"), "--out", p("converted.h5")] + device,
+            "output": p("converted.h5")},
+        "prepro_vqa": {
+            "args": ["--input_train_json", p("vqa_raw_train.json"), "--input_test_json", p("vqa_raw_test.json"),
+                     "--num_ans", str(PL_NUM_ANS), "--num_val", str(PL_NUM_VAL), "--max_length", str(T),
+                     "--token_method", "nltk", "--extern_vocab", p("vocab.json"),
+                     "--output_json", p("data_prepro.json"), "--output_h5", p("data_prepro.h5")],
+            "output": p("data_prepro.h5")},
+        "extract_features": {
+            "args": ["--input_json", p("data_prepro.json"), "--image_root", p("coco"), "--model", "vgg16",
+                     "--image_size", str(PL_IMAGE_SIZE), "--seed", str(SEED),
+                     "--out_name", p("data_img.h5")] + device,
+            "output": p("data_img.h5")},
+        "train_vqa_arch1": {
+            "args": data + width + ["--init_from", p("converted.h5"), "--nhimage", str(PL_F),
+                                    "--num_output", str(PL_NUM_ANS), "--max_iters", str(PL_VQA_ITERS),
+                                    "--save_checkpoint_every", str(PL_VQA_EVERY), "--log_every", "1",
+                                    "--checkpoint_path", p("model") + "/"] + device,
+            "output": p("model", "lstm.h5")},
+        "eval_vqa_arch1": {
+            "args": data + width + ["--model_path", p("model", "lstm.h5"), "--nhimage", str(PL_F),
+                                    "--num_output", str(PL_NUM_ANS), "--out_path", p("result") + "/"] + device,
+            "output": oe},
+        "evaluate": {
+            "args": ["--data_dir", root, "--ann_file", p("annotations", "mscoco_val2014_annotations.json"),
+                     "--ques_file", p("annotations", "OpenEnded_mscoco_val2014_questions.json"),
+                     "--res_file", oe, "--out_json", p("acc.json")],
+            "output": p("acc.json")},
+    }
+
+
+# the pipeline stages that run NLTK's tokenizer or tagger, or
+# scikit-learn's KMeans: the CPU tests run them (tests/test_torch_pipeline.py)
+PL_LIBRARY_STAGES = {"novel_stats": "nltk", "novel_cluster": "sklearn", "novel_split": "nltk",
+                     "correction": "nltk", "quality_eval": "nltk", "prepro_vqa --token_method treebank": "nltk"}
+
+
+def run_pipeline(K, dev, smi: str) -> dict:
+    """The port's ``run_all`` on one config of nine stages, from a raw VQA v1
+    tree to accuracy: each stage's wall seconds and launches, every
+    declared output, the seq and step launches against the loops' counts,
+    the accuracies ``evaluate`` writes against a count made here, and a
+    second ``run_all`` that skips every stage."""
+    import importlib
+    import importlib.util
+    import io
+
+    from novel_vqa_torch.pipeline import run_all
+    from novel_vqa_torch.train import eval_vqa_arch1, train_text_ae, train_vqa_arch1
+
+    probe = {name: importlib.util.find_spec(name) is not None
+             for name in ("h5py", "nltk", "sklearn", "spacy", "PIL", "scipy")}
+    out = {"card": smi, "library_probe": probe,
+           "not_in_this_config": {name: f"needs {lib}" for name, lib in PL_LIBRARY_STAGES.items()},
+           "widths": {"rnn_layer": 1, "E": PL_E, "H": PL_E, "nhimage": PL_F, "answers": PL_NUM_ANS, "T": T},
+           "data": {"train_questions": PL_TRAIN_Q, "test_questions": PL_TEST_Q, "num_val": PL_NUM_VAL,
+                    "images": PL_TRAIN_IMG + PL_TEST_IMG, "corpus_sentences": PL_SENTENCES,
+                    "ae_iters": PL_AE_ITERS, "vqa_iters": PL_VQA_ITERS}}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        vocab, val_anns = write_raw_vqa(root, np.random.RandomState(SEED + 50))
+        out["data"]["vocabulary"] = vocab
+        out["setup_s"] = time.perf_counter() - t0
+        config = pipeline_config(root, dev)
+        out["stages"] = list(config)
+        cfg_path = os.path.join(root, "run_all.json")
+        with open(cfg_path, "w") as f:
+            json.dump(config, f)
+
+        stages = {}
+
+        def timed(name, fn):
+            def run(argv):
+                K.lstm_seq.launches = K.lstm_step.launches = 0
+                t_stage = time.perf_counter()
+                fn(argv)
+                torch.cuda.synchronize()
+                stages[name] = {"wall_s": time.perf_counter() - t_stage,
+                                "launches": {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches}}
+            return run
+
+        with contextlib.ExitStack() as stack:
+            for name, module, entry in run_all.STAGES:
+                if name in config:
+                    mod = importlib.import_module(module)
+                    stack.enter_context(mock.patch.object(mod, entry, timed(name, getattr(mod, entry))))
+            t0 = time.perf_counter()
+            run_all.main(["--config", cfg_path])
+            out["run_all_s"] = time.perf_counter() - t0
+        out["per_stage"] = stages
+        missing = [name for name, st in config.items() if not os.path.exists(st["output"])]
+        if sorted(stages) != sorted(config) or missing:
+            raise AssertionError(f"run_all ran {sorted(stages)}; outputs missing: {missing}")
+
+        # the launches each loop implies: the AE's validations (per batch,
+        # the fused NLL and, with --sample_print, encode + greedy sample:
+        # 66 step launches at T=16, one layer), arch1's validations and the
+        # eval (one seq launch per batch at rnn_layer 1)
+        with open(os.path.join(root, "data.json")) as f:
+            n_val_corpus = json.load(f)["num_val"]
+        ae_val = ae_evals(PL_AE_ITERS, 1, train_text_ae.AETrainConfig.save_checkpoint_every) * ae_eval_batches(
+            n_val_corpus, train_text_ae.AETrainConfig.batch_size, train_text_ae.AETrainConfig.val_sentences_use)
+        with open(os.path.join(root, "vqa_raw_test.json")) as f:
+            n_test = len(json.load(f))
+        expected = {name: {"lstm_seq": 0, "lstm_step": 0} for name in config}
+        expected["train_text_ae"]["lstm_step"] = ae_val * ((T + (T + 1)) + (T + (T + 1)))
+        expected["train_vqa_arch1"]["lstm_seq"] = vqa_validations(PL_VQA_ITERS, 1, PL_VQA_EVERY) * -(
+            -PL_NUM_VAL // train_vqa_arch1.TrainConfig.batch_size)
+        expected["eval_vqa_arch1"]["lstm_seq"] = -(-n_test // eval_vqa_arch1.EvalConfig.batch_size)
+        got = {name: st["launches"] for name, st in stages.items()}
+        if got != expected:
+            raise AssertionError(f"pipeline launches {got}, expected {expected}")
+        out["launches_seq"] = sum(v["lstm_seq"] for v in got.values())
+        out["launches_step"] = sum(v["lstm_step"] for v in got.values())
+
+        # the accuracies evaluate wrote against a count made here
+        with open(config["eval_vqa_arch1"]["output"]) as f:
+            results = json.load(f)
+        with open(config["evaluate"]["output"]) as f:
+            acc = json.load(f)
+        want = direct_accuracy(val_anns, results)
+        if {k: acc[k] for k in want} != want:
+            raise AssertionError(f"pipeline evaluate {acc} != the direct count {want}")
+        out["accuracy"] = want
+        out["accuracies_equal_direct_count"] = True
+
+        # a second run_all without --force skips every stage
+        K.lstm_seq.launches = K.lstm_step.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_all.main(["--config", cfg_path])
+        skipped = buf.getvalue().count("SKIP")
+        if skipped != len(config) or K.lstm_seq.launches or K.lstm_step.launches:
+            raise AssertionError(f"second run_all: {skipped} stages skipped of {len(config)}")
+        out["second_run_skipped"] = skipped
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seq2-mutants", action="store_true",
@@ -2234,6 +2673,10 @@ def main(argv=None) -> int:
     emit({"phase": "inception", **run_inception(K, K2, dev, smi, probe)})
     wp_out = run_weakpaired(K, dev, smi)
     emit({"phase": "weakpaired", **wp_out})
+    lf_out = run_lf(K, dev, smi)
+    emit({"phase": "lf", **lf_out})
+    pl_out = run_pipeline(K, dev, smi)
+    emit({"phase": "pipeline", **pl_out})
 
     def entry(name, rows, launches, replaces, source=SOURCE):
         timed = [r for r in rows if "kernel_ms" in r]
@@ -2273,6 +2716,12 @@ def main(argv=None) -> int:
     kernels[1]["launches_ae_val"] = ae_out["launches_val"]
     kernels[1]["launches_wp_val"] = wp_out["launches_val"]
     kernels[1]["launches_mean_vectors"] = wp_out["mean_vectors"]["launches"]
+    # the seq kernel's on the lf ensemble's compute (both nets, one store
+    # mode) and the pipeline's (arch1 validation and eval); the step
+    # kernel's on the pipeline's (the text AE's validation)
+    kernels[0]["launches_lf"] = lf_out["launches_lf"]
+    kernels[0]["launches_pipeline"] = pl_out["launches_seq"]
+    kernels[1]["launches_pipeline"] = pl_out["launches_step"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})

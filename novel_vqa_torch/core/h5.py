@@ -17,8 +17,11 @@ itself:
 * writing: superblock version 0, symbol-table groups and one contiguous
   dataset per array, the layout h5py itself writes by default, so h5py and
   the JAX package read these files too; a key ``"a/b"`` is dataset ``b`` of
-  group ``a``.  :func:`update_h5` adds or replaces datasets of an existing
-  file (h5py's mode ``"a"``) by writing the whole file anew.
+  group ``a``.  The metadata is laid out first from each dataset's shape
+  and type, then each dataset's bytes are written at their offset in
+  chunks, so no copy of the file is held in memory.  :func:`update_h5` adds
+  or replaces datasets of an existing file (h5py's mode ``"a"``) by writing
+  the file anew, copying the datasets it keeps from the old file in chunks.
 
 Spec: the HDF5 File Format Specification, version 3.0.
 """
@@ -45,7 +48,9 @@ def _u(buf: bytes, off: int, size: int) -> int:
 
 
 class H5Reader:
-    """Read-only view of a file's datasets, memory-mapped.
+    """Read-only view of a file's datasets: the metadata memory-mapped, the
+    data read with ``os.preadv`` straight into the arrays it returns (so
+    reading a window of rows maps no page of the rest into the process).
 
     ``keys()`` (the root group's members), ``name in reader`` and
     ``reader[name]`` (a numpy array, copied out on demand; ``name`` may be
@@ -56,9 +61,20 @@ class H5Reader:
 
     def __init__(self, path: str):
         self.path = path
-        with open(path, "rb") as f:
-            self._buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
-        buf = self._buf
+        self._fd = os.open(path, os.O_RDONLY)
+        try:
+            self._buf = mmap.mmap(self._fd, 0, access=mmap.ACCESS_READ)
+        except BaseException:
+            os.close(self._fd)
+            raise
+        try:
+            self._open()
+        except BaseException:
+            self.close()
+            raise
+
+    def _open(self) -> None:
+        buf, path = self._buf, self.path
         if buf[:8] != SIGNATURE:
             raise ValueError(f"{path}: not an HDF5 file")
         version = buf[8]
@@ -245,7 +261,7 @@ class H5Reader:
         elif layout[1] == 1:  # contiguous
             addr = _u(layout, 2, 8)
             # never written: the fill value, zero
-            source, offset = (None, 0) if addr == UNDEF else (self._buf, self._addr(addr))
+            source, offset = (None, 0) if addr == UNDEF else (self._fd, self._addr(addr))
         else:
             raise ValueError(f"{self.path}: {name!r}: chunked storage is not supported")
         return H5Dataset(shape, dtype, source, offset)
@@ -254,7 +270,10 @@ class H5Reader:
         return self.dataset(name).read()
 
     def close(self) -> None:
-        self._buf.close()
+        if self._fd >= 0:
+            self._buf.close()
+            os.close(self._fd)
+            self._fd = -1
 
     def __enter__(self):
         return self
@@ -267,22 +286,34 @@ class H5Reader:
 class H5Dataset:
     """One dataset of an open :class:`H5Reader`: ``shape``, ``dtype``,
     ``read()`` for the whole array and ``view[start:stop]`` for a window of
-    rows along the first axis, each a copy in native byte order that owns
+    rows along the first axis, each an array in native byte order that owns
     its memory past the reader's close."""
 
     def __init__(self, shape, dtype: np.dtype, source, offset: int):
+        # source: the file descriptor of contiguous data, the bytes of a
+        # compact dataset, or None for data never written (zeros)
         self.shape, self.dtype = tuple(shape), dtype
         self._source, self._offset = source, offset
         self._row = int(np.prod(self.shape[1:], dtype=np.int64))
 
     def _rows(self, start: int, stop: int) -> np.ndarray:
-        count = (stop - start) * self._row
+        shape = (stop - start,) + self.shape[1:]
+        native = self.dtype.newbyteorder("=")
         if self._source is None:
-            arr = np.zeros(count, self.dtype)
-        else:
-            offset = self._offset + start * self._row * self.dtype.itemsize
-            arr = np.frombuffer(self._source, self.dtype, count, offset)
-        return arr.reshape((stop - start,) + self.shape[1:]).astype(self.dtype.newbyteorder("="))
+            return np.zeros(shape, native)
+        offset = self._offset + start * self._row * self.dtype.itemsize
+        if not isinstance(self._source, int):
+            arr = np.frombuffer(self._source, self.dtype, (stop - start) * self._row, offset)
+            return arr.reshape(shape).astype(native)
+        arr = np.empty(shape, self.dtype)
+        view = memoryview(arr.reshape(-1).view(np.uint8))
+        done = 0
+        while done < len(view):
+            n = os.preadv(self._source, [view[done:]], offset + done)
+            if n <= 0:
+                raise ValueError(f"dataset data past the end of the file (offset {offset + done})")
+            done += n
+        return arr.astype(native, copy=False)  # a copy only to swap bytes
 
     def read(self) -> np.ndarray:
         if not self.shape:
@@ -350,20 +381,24 @@ def _datatype_message(dtype: np.dtype) -> bytes:
     raise ValueError(f"dtype {dtype} cannot be written")
 
 
-def _dataset_messages(a: np.ndarray, data_addr: int) -> bytes:
+def _dataset_messages(shape: Tuple[int, ...], dtype: np.dtype, nbytes: int, data_addr: int) -> bytes:
     return (
-        _message_v1(_MSG_DATASPACE, struct.pack("<BBBx4x", 1, a.ndim, 0)
-                    + b"".join(struct.pack("<Q", d) for d in a.shape))
-        + _message_v1(_MSG_DATATYPE, _datatype_message(a.dtype))
+        _message_v1(_MSG_DATASPACE, struct.pack("<BBBx4x", 1, len(shape), 0)
+                    + b"".join(struct.pack("<Q", d) for d in shape))
+        + _message_v1(_MSG_DATATYPE, _datatype_message(dtype))
         # fill value v2 as h5py writes it: late allocation, written if set
         + _message_v1(_MSG_FILL, struct.pack("<BBBBI", 2, 2, 2, 1, 0))
-        + _message_v1(_MSG_LAYOUT, struct.pack("<BBQQ", 3, 1, data_addr, a.nbytes))
+        + _message_v1(_MSG_LAYOUT, struct.pack("<BBQQ", 3, 1, data_addr, nbytes))
     )
 
 
+_CHUNK = 4 << 20  # bytes of a dataset's data written at a time
+
+
 def _tree(arrays: Dict[str, np.ndarray]) -> dict:
-    """``{"a/b": x}`` -> ``{"a": {"b": x}}``, each array contiguous and
-    little-endian."""
+    """``{"a/b": x}`` -> ``{"a": {"b": x}}``: each array contiguous and
+    little-endian (copied only where it is not), each :class:`H5Dataset`
+    of at least one axis left in its file, to be copied in chunks."""
     root: dict = {}
     for key, value in arrays.items():
         parts = key.strip("/").split("/")
@@ -374,11 +409,38 @@ def _tree(arrays: Dict[str, np.ndarray]) -> dict:
                 raise ValueError(f"{key}: {part!r} is a dataset, not a group")
         if parts[-1] in node:
             raise ValueError(f"{key}: written twice, or a group of that name exists")
-        a = np.ascontiguousarray(value)
+        if isinstance(value, H5Dataset) and value.shape:
+            node[parts[-1]] = value
+            continue
+        a = np.ascontiguousarray(value.read() if isinstance(value, H5Dataset) else value)
         if a.dtype.kind not in "iuf":
             raise ValueError(f"{key}: dtype {a.dtype} cannot be written")
-        node[parts[-1]] = a.astype(a.dtype.newbyteorder("<"))
+        node[parts[-1]] = a.astype(a.dtype.newbyteorder("<"), copy=False)
     return root
+
+
+def _layout(x) -> Tuple[Tuple[int, ...], np.dtype, int]:
+    """Shape, little-endian element type and size in bytes of an array or
+    an :class:`H5Dataset`."""
+    if isinstance(x, H5Dataset):
+        dtype = x.dtype.newbyteorder("<")
+        return x.shape, dtype, x.shape[0] * x._row * dtype.itemsize
+    return x.shape, x.dtype, x.nbytes
+
+
+def _write_data(f, x) -> None:
+    """Write the data of ``x`` at the file's position, ``_CHUNK`` bytes at
+    a time (an array's own memory; a dataset's rows read a window at a
+    time)."""
+    if isinstance(x, H5Dataset):
+        step = max(1, _CHUNK // max(1, x._row * x.dtype.itemsize))
+        for start in range(0, x.shape[0], step):
+            rows = x[start : start + step]
+            f.write(memoryview(rows.astype(rows.dtype.newbyteorder("<"), copy=False).reshape(-1).view(np.uint8)))
+        return
+    view = memoryview(x.reshape(-1).view(np.uint8))
+    for start in range(0, len(view), _CHUNK):
+        f.write(view[start : start + _CHUNK])
 
 
 def _max_members(node: dict) -> int:
@@ -388,21 +450,27 @@ def _max_members(node: dict) -> int:
 def write_h5(path: str, arrays: Dict[str, np.ndarray]) -> None:
     """Write ``arrays`` as contiguous datasets of a new HDF5 file at
     ``path`` (superblock 0, symbol-table groups); a key ``"a/b"`` is
-    dataset ``b`` of group ``a``."""
+    dataset ``b`` of group ``a``.  A value may also be an
+    :class:`H5Dataset` of another open file, whose rows are copied in
+    chunks.  The metadata is laid out first; then every piece is written
+    at its offset in address order, each dataset in chunks, so the file
+    is never held in memory."""
     root = _tree(arrays)
     # one symbol table node per group, holding up to 2K links (K is a
     # file-wide value of the superblock)
     leaf_k = max(4, -(-_max_members(root) // 2))
     internal_k = 16
-    out = bytearray(96)  # the superblock, written last
+    end = 96  # the superblock, written last
+    pieces: List[Tuple[int, object]] = []  # (address, metadata bytes or a dataset's data)
 
     def alloc(n: int) -> int:
-        addr = len(out)
-        out.extend(b"\0" * (n + (-n % 8)))
+        nonlocal end
+        addr = end
+        end += n + (-n % 8)
         return addr
 
-    def put(addr: int, b: bytes) -> None:
-        out[addr : addr + len(b)] = b
+    def put(addr: int, b) -> None:
+        pieces.append((addr, b))
 
     def group(node: dict) -> Tuple[int, int, int]:
         """Lay out one group and, below it, its members: returns the
@@ -427,13 +495,13 @@ def write_h5(path: str, arrays: Dict[str, np.ndarray]) -> None:
                 # cache type 1: the member group's B-tree and heap
                 entries.append(struct.pack("<QI4xQQ", m_ohdr, 1, m_btree, m_heap))
             else:
-                msgs = _dataset_messages(member, 0)
-                m_ohdr = alloc(16 + len(msgs))
-                data = alloc(member.nbytes) if member.nbytes else UNDEF  # empty: no storage
-                msgs = _dataset_messages(member, data)
+                shape, dtype, nbytes = _layout(member)
+                m_ohdr = alloc(16 + len(_dataset_messages(shape, dtype, nbytes, 0)))
+                data = alloc(nbytes) if nbytes else UNDEF  # empty: no storage
+                msgs = _dataset_messages(shape, dtype, nbytes, data)
                 put(m_ohdr, struct.pack("<BBHII4x", 1, 0, 4, 1, len(msgs)) + msgs)
-                if member.nbytes:
-                    put(data, member.tobytes())
+                if nbytes:
+                    put(data, member)
                 entries.append(struct.pack("<QI4x16x", m_ohdr, 0))
         put(ohdr, struct.pack("<BBHII4x", 1, 0, 1, 1, 24)
             + _message_v1(_MSG_SYMBOL_TABLE, struct.pack("<QQ", btree, heap)))
@@ -454,27 +522,34 @@ def write_h5(path: str, arrays: Dict[str, np.ndarray]) -> None:
     put(0, SIGNATURE
         + struct.pack("<8B", 0, 0, 0, 0, 0, 8, 8, 0)
         + struct.pack("<HHI", leaf_k, internal_k, 0)
-        + struct.pack("<QQQQ", 0, UNDEF, len(out), UNDEF)
+        + struct.pack("<QQQQ", 0, UNDEF, end, UNDEF)
         # root symbol table entry, cache type 1: the B-tree and heap
         + struct.pack("<QQI4xQQ", 0, root_ohdr, 1, root_btree, root_heap))
     with open(path, "wb") as f:
-        f.write(bytes(out))
+        for addr, piece in sorted(pieces, key=lambda p: p[0]):
+            f.seek(addr)
+            if isinstance(piece, bytes):
+                f.write(piece)
+            else:
+                _write_data(f, piece)
+        f.truncate(end)  # the padding after the last piece reads as zeros
 
 
 def update_h5(path: str, arrays: Dict[str, np.ndarray]) -> None:
     """Add ``arrays`` to the HDF5 file at ``path``, replacing datasets of
     the same name and keeping every other one (h5py's mode ``"a"``): the
-    file is read whole, written anew under a temporary name and renamed
-    over the old one.  A missing file is created; one this module cannot
-    read raises ``ValueError``."""
-    merged: Dict[str, np.ndarray] = {}
-    if os.path.exists(path):
-        with H5Reader(path) as f:
-            merged = {name: f[name] for name in f.datasets()}
-    merged.update(arrays)
+    file is written anew under a temporary name, the kept datasets copied
+    from the old file in chunks, and renamed over the old one.  A missing
+    file is created; one this module cannot read raises ``ValueError``."""
     tmp = f"{path}.tmp{os.getpid()}"
     try:
-        write_h5(tmp, merged)
+        if os.path.exists(path):
+            with H5Reader(path) as f:
+                merged = {name: f.dataset(name) for name in f.datasets() if name not in arrays}
+                merged.update(arrays)
+                write_h5(tmp, merged)
+        else:
+            write_h5(tmp, arrays)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):

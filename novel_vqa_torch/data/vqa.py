@@ -157,27 +157,16 @@ class VQAData:
             store["mc_ans"] = self.d["mc_ans_test"].astype(np.int32)
         return store
 
-    def iter_split(
-        self, split: str, batch_size: int, pad_to_batch: bool = False
-    ) -> Iterator[Batch]:
-        """Sequential batches over a split (val loop :337-381 / test eval).
-
-        With ``pad_to_batch`` the final short batch is padded by repeating row
-        0 so every batch has the same shape; ``question_id`` holds only the
-        real rows, so callers trim by its length.
-        """
+    def iter_split(self, split: str, batch_size: int) -> Iterator[Batch]:
+        """Sequential batches over a split (val loop :337-381 / test eval);
+        the final batch holds only the rows left.  (The JAX package's
+        ``pad_to_batch`` option repeats row 0 into it; the port pads in
+        ``train/eval_loop.py``, with the split's last row.)"""
         n = self.num_examples(split)
+        labels_key = {"train": "answers_train", "val": "answers_val"}.get(split, "")
         for start in range(0, n, batch_size):
-            stop = min(n, start + batch_size)
-            idx = np.arange(start, stop)
-            real = len(idx)
-            if pad_to_batch and real < batch_size:
-                idx = np.concatenate([idx, np.zeros(batch_size - real, np.int64)])
+            idx = np.arange(start, min(n, start + batch_size))
             iminds = self.d[f"img_pos_{split}"][idx].astype(np.int64) - 1
-            labels_key = {
-                "train": "answers_train",
-                "val": "answers_val",
-            }.get(split, "")
             yield Batch(
                 tokens=self.d[f"question_{split}"][idx],
                 image=self.d[f"fv_im_{split}"][iminds],
@@ -186,8 +175,9 @@ class VQAData:
                     if labels_key in self.d
                     else np.zeros(len(idx), np.int32)
                 ),
-                question_id=self.d[f"question_id_{split}"][np.arange(start, stop)],
+                question_id=self.d[f"question_id_{split}"][idx],
                 mc_answers=(
-                    self.d["mc_ans_test"][idx] if "mc_ans_test" in self.d else None
+                    self.d["mc_ans_test"][idx]
+                    if split == "test" and "mc_ans_test" in self.d else None
                 ),
             )

@@ -64,7 +64,16 @@ def run_lstm(args):
     n_split = loader.split_count[args.split]
     loader.reset_iterator(args.split)
     while True:
+        start = loader.iterators[args.split]
         labels, bounds = loader.get_batch(args.split, args.batch_size)
+        if bounds["wrapped"] and start == n_split - 1:
+            # one row left: the loader reads rows [0, B) here, whose first
+            # row is row 0 again (the JAX tool counts it twice and never
+            # counts row n-1, ROADMAP C1).  Encode the window it reads
+            # when more rows are left, [n-1, 0, ..., B-2], first row n-1.
+            ds = loader.h5.dataset(f"labels/{args.split}")
+            window = np.concatenate([ds[start:n_split], ds[0 : args.batch_size - 1]])
+            labels = np.ascontiguousarray(window.astype(np.int32).T)
         with torch.inference_mode():
             c, h = ae.encode(params, cfg, torch.from_numpy(labels).to(device))
             vecs = torch.cat([c[-1], h[-1]], dim=-1).cpu().numpy()  # the [c, h] layout

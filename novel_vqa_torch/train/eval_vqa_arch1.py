@@ -49,7 +49,7 @@ class EvalConfig:
     out_path: str = "result/"
     result_name: str = "mscoco_val2014_lstm_novel_new_2"
     seed: int = 123
-    # multi-GPU eval comes with the multi-GPU slice: 1 raises
+    # multi-GPU eval comes with the multi-GPU slice: 1 raises at once
     data_parallel: int = 0
     # 1 (default) = upload the test split ONCE and gather batches on the
     # device; 0 = stream each batch host->device (for stores larger than
@@ -60,6 +60,10 @@ class EvalConfig:
 
 def main(argv=None):
     opt = parse_config(EvalConfig, argv, description=__doc__)
+    if opt.data_parallel:
+        raise NotImplementedError(
+            "--data_parallel 1: multi-GPU eval comes with the multi-GPU slice (ROADMAP A13)"
+        )
     device = resolve_device(opt.device)
     # full fp32 in the fusion/classifier products, as the CPU reference
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -94,7 +98,6 @@ def main(argv=None):
         arch1, cfg, params, data, "test", opt.batch_size,
         device=device,
         hbm_resident=bool(opt.hbm_resident),
-        data_parallel=bool(opt.data_parallel),
         want="predict" if opt.hbm_resident else "scores",
     )
     qids = data.d["question_id_test"]

@@ -5,8 +5,8 @@
 Reads the ``unique_img_{train,val,test}`` lists of data_prepro.json, decodes
 and resizes each image on the host, runs the CNN on the device, taps the
 feature layer and writes ``/images_{train,test,val}`` float32 datasets in
-list order through the port's own h5 writer (``core/h5.py``), with the JAX
-CLI's dataset names, dtype and shapes.  ``--model2`` concatenates a second
+list order through the port's own h5 writer (``core/h5.py``), each split as
+it finishes, with the JAX CLI's dataset names, dtype and shapes.  ``--model2`` concatenates a second
 net's features for the early-fusion store (001_prepro_img_ef.lua): vggembed
 + vgg19 gives 4800 + 4096 = 8896 columns.
 
@@ -48,7 +48,7 @@ from torch.profiler import record_function
 
 from novel_vqa_torch.core.config import parse_config
 from novel_vqa_torch.core.device import resolve_device
-from novel_vqa_torch.core.h5 import write_h5
+from novel_vqa_torch.core.h5 import update_h5, write_h5
 from novel_vqa_torch.data import images as I
 from novel_vqa_torch.models.vision import inception, vgg
 from novel_vqa_torch.models.vision.layers import bf16_storage_cast, fp32_exact
@@ -255,7 +255,10 @@ def main(argv=None):
                                   opt.image_size, opt.compute_dtype, device))
     print("decoder:", I.default_decoder())
 
-    stores = {}
+    # each split is written as it finishes (as the JAX CLI's h5py file
+    # takes it): update_h5 rewrites the file, copying the finished splits
+    # in chunks, so no more than one split's features are held
+    write_h5(opt.out_name, {})
     for split in ("train", "test", "val"):
         paths = [os.path.join(opt.image_root, p) for p in meta.get(f"unique_img_{split}", [])]
         if opt.limit >= 0:
@@ -268,8 +271,8 @@ def main(argv=None):
         )
         print(f"processed {len(paths)} {split} images in {dt:.1f}s "
               f"({len(paths)/dt:.1f} images/sec)")
-        stores[f"images_{split}"] = feats
-    write_h5(opt.out_name, stores)
+        update_h5(opt.out_name, {f"images_{split}": feats})
+        del feats
     print("wrote", opt.out_name)
 
 

@@ -182,10 +182,17 @@ def test_vqa_data_matches_jax(synthetic_dataset):
     assert sorted(js) == sorted(ts)
     for k in js:
         np.testing.assert_array_equal(ts[k], js[k])
-    for jb, tb in zip(jd.iter_split("test", 16, pad_to_batch=True), td.iter_split("test", 16, pad_to_batch=True)):
+    # the port's iter_split does not pad (its eval loop pads with the last
+    # row); JAX's row-0 pad is not ported, so the unpadded batches compare
+    jbatches = list(jd.iter_split("test", 16, pad_to_batch=False))
+    tbatches = list(td.iter_split("test", 16))
+    assert len(tbatches) == len(jbatches) == 4 and len(tbatches[-1].question_id) == 12
+    for jb, tb in zip(jbatches, tbatches):
         np.testing.assert_array_equal(tb.tokens, jb.tokens)
         np.testing.assert_array_equal(tb.image, jb.image)
+        np.testing.assert_array_equal(tb.labels, jb.labels)
         np.testing.assert_array_equal(tb.question_id, jb.question_id)
+        np.testing.assert_array_equal(tb.mc_answers, jb.mc_answers)
 
 
 def test_eval_cli_refuses_missing_card_and_data_parallel(synthetic_dataset, tmp_path):
@@ -196,3 +203,14 @@ def test_eval_cli_refuses_missing_card_and_data_parallel(synthetic_dataset, tmp_
             teval.main(argv)  # the default device is cuda
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         teval.main(argv + ["--device", "cpu", "--data_parallel", "1"])
+
+
+def test_eval_cli_refuses_data_parallel_before_reading_data(tmp_path):
+    """The refusal comes at the top of ``main``, naming ROADMAP A13: files
+    that do not exist are never opened."""
+    missing = str(tmp_path / "nothere")
+    argv = ["--input_img_h5", missing, "--input_ques_h5", missing, "--input_json", missing,
+            "--model_path", missing, "--out_path", str(tmp_path / "out") + "/", "--data_parallel", "1"]
+    with pytest.raises(NotImplementedError, match="multi-GPU.*A13"):
+        teval.main(argv)
+    assert not (tmp_path / "out").exists()

@@ -233,3 +233,29 @@ def test_store_is_read_by_h5py_and_the_port(tmp_path):
         for k, v in feats.items():
             assert f[k].dtype == np.float32 and f[k].shape == v.shape
             np.testing.assert_array_equal(f[k][()], v)
+
+
+def test_cli_writes_each_split_as_it_finishes(image_dir, tmp_path, monkeypatch):
+    """The store holds each finished split before the next one starts (so
+    no more than one split's features are held), and ends as the bytes one
+    write of all the splits gives."""
+    from novel_vqa_torch.core.h5 import write_h5
+
+    out = str(tmp_path / "t.h5")
+    seen, stores = [], {}
+    run = textract.run_pipelined_extraction
+
+    def recording(models, paths, *args, **kwargs):
+        with H5Reader(out) as h5:
+            seen.append(sorted(h5.datasets()))
+        feats, dt = run(models, paths, *args, **kwargs)
+        stores[f"images_{['train', 'test', 'val'][len(seen) - 1]}"] = feats.copy()
+        return feats, dt
+
+    monkeypatch.setattr(textract, "run_pipelined_extraction", recording)
+    textract.main(["--input_json", str(image_dir / "data_prepro.json"), "--image_root", str(image_dir),
+                   "--image_size", str(SIZE), "--batch_size", "2", "--model", "vgg16",
+                   "--out_name", out, "--device", "cpu"])
+    assert seen == [[], ["images_train"], ["images_test", "images_train"]]
+    write_h5(str(tmp_path / "once.h5"), stores)
+    assert (tmp_path / "once.h5").read_bytes() == (tmp_path / "t.h5").read_bytes()

@@ -41,8 +41,9 @@ def test_port_imports_without_nvcc_jax_or_card(tmp_path):
     """In a fresh interpreter with no nvcc on PATH and no card: import the
     port's entry points (and with them every module they reach), run the seq wrapper on CPU tensors (its plain
     version) and the VGG prepro, and check that neither JAX nor the JAX
-    package was loaded and that nothing was built (neither a kernel nor
-    the native decoder)."""
+    package was loaded, that nothing was built (neither a kernel nor the
+    native decoder) and that the pipeline's NLTK, scikit-learn and spaCy
+    are not imported before a stage needs them."""
     code = (
         "import sys, torch\n"
         "import novel_vqa_torch.train.eval_vqa_arch1\n"
@@ -52,6 +53,9 @@ def test_port_imports_without_nvcc_jax_or_card(tmp_path):
         "import novel_vqa_torch.train.train_vqa_arch2, novel_vqa_torch.train.eval_vqa_arch2\n"
         "import novel_vqa_torch.train.train_weakpaired_ae, novel_vqa_torch.train.compute_mean_vectors\n"
         "import novel_vqa_torch.train.import_t7, novel_vqa_torch.train.import_pth\n"
+        "import novel_vqa_torch.train.lf_ensemble, novel_vqa_torch.pipeline.run_all\n"
+        "from novel_vqa_torch.pipeline import tokenize, pos, vqa_preprocessing, prepro_vqa\n"
+        "from novel_vqa_torch.pipeline import prepro_book_corpus, novel_split, correction, quality_eval\n"
         "from novel_vqa_torch.data import images, native_images\n"
         "from novel_vqa_torch.kernels import build, lstm\n"
         "xs = torch.zeros(3, 2, 4); m = torch.ones(3, 2)\n"
@@ -62,6 +66,8 @@ def test_port_imports_without_nvcc_jax_or_card(tmp_path):
         "assert lstm.lstm_seq.launches == 0\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
+        "lazy = [m for m in ('nltk', 'sklearn', 'spacy') if m in sys.modules]\n"
+        "assert not lazy, lazy  # the pipeline imports them at first use\n"
     )
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH",)}
     env.update(PATH=str(tmp_path), CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))

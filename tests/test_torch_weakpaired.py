@@ -392,3 +392,29 @@ def test_mean_image_vector_matches_jax_exactly(tmp_path, l2):
     with h5py.File(tmp_path / "j.h5", "r") as j, h5py.File(tmp_path / "t.h5", "r") as t:
         np.testing.assert_array_equal(t["mean_vector"][()], j["mean_vector"][()])
         assert t["mean_vector"].dtype == np.float32 and t["mean_vector"].shape == (1, 7)
+
+
+def test_mean_lstm_vector_counts_the_last_row_when_one_is_left(corpora, tmp_path):
+    """14 sentences at batch 13 leave one row for the wrapping batch.  The
+    loader then reads rows 0-12, and the JAX tool keeps its first row, row
+    0 again, and never counts row 13 (ROADMAP C1).  The port encodes the
+    window [13, 0, ..., 11] the loader reads when more rows are left and
+    keeps row 13: each sentence once."""
+    tcfg = tae.AEConfig(vocab_size=V, input_encoding_size=E, rnn_size=E, seq_length=L)
+    params = tae.init_params(tcfg, torch.Generator().manual_seed(4), "cpu")
+    save_npz(str(tmp_path / "ae.npz"), ae_params_to_numpy(params), meta={"cfg": tcfg._asdict()})
+    argv = ["lstm", "--ae_model", str(tmp_path / "ae.npz"), "--input_h5", corpora["vgg16"],
+            "--input_json", corpora["json"], "--batch_size", "13"]
+    tmean.main(argv + ["--out", str(tmp_path / "t.h5"), "--device", "cpu"])
+    jmean.main(argv + ["--out", str(tmp_path / "j.h5")])
+    with h5py.File(corpora["vgg16"], "r") as f:
+        rows = f["labels/train"][()].astype(np.int32)
+    vecs = []
+    for window, keep in ((rows[0:13], 13), (np.concatenate([rows[13:14], rows[0:12]]), 1)):
+        with torch.inference_mode():
+            c, h = tae.encode(params, tcfg, torch.from_numpy(window.T.copy()))
+        vecs.append(torch.cat([c[-1], h[-1]], dim=-1)[:keep].double())
+    ref = torch.cat(vecs).mean(0).float().numpy()
+    with H5Reader(str(tmp_path / "t.h5")) as t, h5py.File(tmp_path / "j.h5", "r") as j:
+        np.testing.assert_allclose(t["mean_vector"][0], ref, rtol=1e-6, atol=1e-7)
+        assert np.abs(j["mean_vector"][0] - ref).max() > 1e-3  # row 0 twice, row 13 never
