@@ -147,11 +147,36 @@ Phases, each printing one JSON line:
      second run that skips every stage, and which of NLTK, scikit-learn
      and h5py this machine has (the stages that need them run in the CPU
      tests).
-Phases 9-17 print the card's name and power limit on their lines.
+ 18. selfcheck: ``python -m novel_vqa_torch.utils.selfcheck`` in its own
+     process, as a user runs it: it must exit 0 and end with ``SELFCHECK
+     PASSED``; its kernel launches;
+ 19. op_profile: ``utils/op_profile.profile_workload('arch1')`` at the
+     reference width and batch, OP_STEPS iterations per traced call, on
+     both routes: the per-step device time, the kernels per step and the
+     top kernels per stream; under FUSED2 the seq2 kernel once per step
+     in the trace and in the launch count, never on the default route;
+ 20. validate_weights: the tool's dry run at VGG-16's full width on the
+     card: random weights, fixtures recorded, checked (rc 0), a conv
+     kernel corrupted, checked again (rc 1);
+ 21. rehearsal: ``python -m novel_vqa_torch.utils.rehearsal`` at REH_ARGS
+     (5% of novel_v2's dimensions, a 64-image extraction segment) with a
+     synthetic vocabulary of the real sizes, in its own process: every
+     stage in its report, wall time by stage, device memory, the eval's
+     seq launches (2 per batch);
+ 22. dp: ``--data_parallel 1`` through ``torch.distributed.run
+     --standalone``, one process per card (NCCL), at the CLIs' dropout
+     (0.5; each rank's masks are its slice of the global batch's): the
+     arch1 trainer on both routes, ``eval_vqa_arch1`` and
+     ``eval_vqa_arch2``, against the same runs in this process: each
+     rank's launches equal the plain runs'; at world size 1 the
+     checkpoints and result JSONs are identical byte for byte.
+Phases 9-22 print the card's name and power limit on their lines.
 Then a line with nvidia-smi's name and power limit, one JSON line listing
 every kernel, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without a card it exits non-zero at
 once.  Imports torch, numpy, the standard library and the port only.
+
+``--dp-worker DIR`` is phase 22's torchrun process (not for direct use).
 
 ``--seq2-mutants`` runs phases 1-2 and then shows that the seq2 check is
 tight enough: it builds variants of csrc/lstm2.cu, each with one of the
@@ -181,11 +206,16 @@ from unittest import mock
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense bf16 on the tensor cores, and HBM3 bandwidth
-FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
+from novel_vqa_torch.core.device_bench import (
+    BF16_FLOPS,
+    FP32_FLOPS,
+    bound,
+    graph_device_ms,
+    profile,
+    stage_profile,
+)
+from novel_vqa_torch.ops.lstm import fused2_route
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 SCORE_TOL = 1e-4
 # seq2 kernel vs its plain version run free from the same inputs: a
@@ -303,40 +333,6 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def device_ms(fn, calls: int = 20, reps: int = REPS, warmup: int = 3) -> float:
-    """Device time per call without the host's issue: ``calls`` calls of
-    ``fn`` captured in one CUDA graph after warm-up (so no one-time host
-    set-up runs inside the capture), the graph replayed ``reps`` times
-    between CUDA events; the median per call."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def ptxas_lines(log: str):
@@ -543,8 +539,8 @@ def step_case(K, N, In, H_, timed, main, gen, dev):
         # host issue included), and device time alone (CUDA-graph replay)
         row.update(
             kernel_ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=time_ms(library),
-            device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
-            library_device_ms=device_ms(library), library="torch.lstm_cell (fp32)",
+            device_ms=graph_device_ms(kernel), plain_device_ms=graph_device_ms(plain),
+            library_device_ms=graph_device_ms(library), library="torch.lstm_cell (fp32)",
         )
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
     return row
@@ -904,28 +900,6 @@ def run_slice(K, dev):
     return out
 
 
-def profile(fn, top: int = 8):
-    """Device time by kernel name over one call, from torch.profiler; the
-    device-side copies of ``record_function`` ranges (VGG's and
-    Inception's stages) are left out, which would count their kernels
-    twice."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-    total = sum(e.device_time_total for e in events)
-    events.sort(key=lambda e: -e.device_time_total)
-    return {"device_ms_total": total / 1e3,
-            "top": [{"name": e.key[:80], "ms": e.device_time_total / 1e3, "count": e.count}
-                    for e in events[:top]]}
-
-
 # --------------------------------------------------------------------------
 # phase 6: the per-step route through the step kernel
 # --------------------------------------------------------------------------
@@ -981,21 +955,6 @@ def ref_cfg(**kw):
 
     return arch1.Arch1Config(vocab_size=V, input_encoding_size=E, rnn_size=H, rnn_layer=L,
                              nhimage=F, common_embedding_size=C, num_output=O, **kw)
-
-
-@contextlib.contextmanager
-def fused2_route(on: bool):
-    """``NOVEL_VQA_FUSED2=1`` inside the block when ``on``, unset when not;
-    the caller's setting afterwards."""
-    old = os.environ.pop("NOVEL_VQA_FUSED2", None)
-    if on:
-        os.environ["NOVEL_VQA_FUSED2"] = "1"
-    try:
-        yield
-    finally:
-        os.environ.pop("NOVEL_VQA_FUSED2", None)
-        if old is not None:
-            os.environ["NOVEL_VQA_FUSED2"] = old
 
 
 def run_route_agreement(K2, dev):
@@ -1184,37 +1143,6 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     """max |got - ref| over max |ref|, per the JAX package's vision parity
     tests (tests/test_vision_torch_parity.py)."""
     return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
-
-
-def stage_profile(fn, top: int = 6) -> dict:
-    """Device ms by stage over one call of the extraction forward, from
-    torch.profiler: each ``record_function`` range of the forward
-    (extract.prepro, vgg.block1..5, vgg.fc6, vgg.fc7) sums the device time
-    of the kernels launched inside it (Inception's: inception.stem, .mixed5,
-    .mixed6, .mixed7, .pool); beside it the total kernel time (the
-    ranges' own device-side annotations left out, which would count each
-    kernel twice) and the kernels that take most of it."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    stages = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-              if e.key.startswith(("extract.", "vgg.", "inception."))
-              and e.device_type == torch.autograd.DeviceType.CPU}
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
-            ms, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    total = sum(ms for ms, _ in by_name.values())
-    return {"device_ms_total": total, "stages_ms": stages,
-            "stages_share": {k: v / total for k, v in stages.items()} if total else {},
-            "top": [{"name": n[:80], "ms": ms, "count": c}
-                    for n, (ms, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]]}
 
 
 def extract_batches(rs: np.random.RandomState, n_batches: int, missing_row: int):
@@ -2599,15 +2527,297 @@ def run_pipeline(K, dev, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 18-22: the tools (A14) and data parallelism (A13)
+# --------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+
+
+def port_env() -> dict:
+    """The environment of a subprocess that imports the port from this
+    checkout."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH", "")) if p)
+    return env
+
+
+def run_selfcheck() -> dict:
+    """``python -m novel_vqa_torch.utils.selfcheck`` as a user runs it."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "novel_vqa_torch.utils.selfcheck"],
+                          cwd=ROOT, env=port_env(), capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines or lines[-1] != "SELFCHECK PASSED":
+        raise AssertionError(f"selfcheck rc {proc.returncode}:\n{proc.stdout}\n{proc.stderr[-3000:]}")
+    launches = next(ln for ln in lines if ln.startswith("kernel launches:"))
+    counts = {w.rstrip(","): int(n.rstrip(",")) for w, n in
+              zip(launches.split()[2::2], launches.split()[3::2])}
+    return {"card": nvidia_smi(), "seconds": time.perf_counter() - t0, "lines": lines,
+            "launches": counts}
+
+
+# op_profile's arch1 workload: a few iterations per traced call at the
+# reference width and batch
+OP_STEPS, OP_CHUNKS = 5, 2
+
+
+def run_op_profile(K, K2, dev, smi: str) -> dict:
+    """``op_profile.profile_workload('arch1')`` on both routes: per-step
+    device time and the top kernels; under FUSED2 the seq2 kernel once per
+    step (in the trace and in the launch count), never otherwise."""
+    from novel_vqa_torch.utils import op_profile
+
+    out = {"card": smi, "batch": BATCH, "steps_per_call": OP_STEPS, "calls": OP_CHUNKS}
+    for route in ("default", "fused2"):
+        with fused2_route(route == "fused2"):
+            K.lstm_seq.launches = K.lstm_step.launches = K2.lstm_seq2.launches = 0
+            rec = op_profile.profile_workload("arch1", BATCH, OP_STEPS, OP_CHUNKS, top=8, device=dev)
+            launches = {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches,
+                        "lstm_seq2": K2.lstm_seq2.launches}
+        traced = sum(r["count"] for rows in rec["streams"].values() for r in rows
+                     if "lstm_seq2_kernel" in r["name"])
+        steps = OP_STEPS * (OP_CHUNKS + 1)  # the warm-up call and the traced ones
+        expected = steps if route == "fused2" else 0
+        if launches != {"lstm_seq": 0, "lstm_step": 0, "lstm_seq2": expected} \
+                or traced != (rec["steps"] if route == "fused2" else 0):
+            raise AssertionError(f"op_profile {route}: launches {launches}, seq2 in the trace {traced}")
+        if not rec["device_plane"]:
+            raise AssertionError(f"op_profile {route}: no device plane in the trace")
+        out[route] = {"per_step_device_ms": rec["per_step_us"] / 1e3,
+                      "kernels_per_step": rec["kernels_per_step"], "launches": launches,
+                      "seq2_in_trace": traced,
+                      "top": {s: rows[:8] for s, rows in rec["streams"].items()}}
+    return out
+
+
+def run_validate_weights(smi: str) -> dict:
+    """``validate_weights``' dry run on the card at VGG-16's full width:
+    random weights written, fixtures recorded, checked (rc 0), a conv
+    corrupted, checked again (rc 1)."""
+    from novel_vqa_torch.core.checkpoint import load_npz, save_npz
+    from novel_vqa_torch.core.convert import vision_params_to_numpy
+    from novel_vqa_torch.models.vision import vgg
+    from novel_vqa_torch.utils import validate_weights
+
+    out = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        wdir = os.path.join(tmp, "weights")
+        os.makedirs(wdir)
+        params = vgg.init_params(vgg.VGGConfig(arch="vgg16"), torch.Generator().manual_seed(SEED), "cpu")
+        save_npz(os.path.join(wdir, "VGG_ILSVRC_16_layers.npz"), vision_params_to_numpy(params))
+        fx = os.path.join(tmp, "fixtures.json")
+        t0 = time.perf_counter()
+        rcs = [validate_weights.run(["--weights_dir", wdir, "--make_fixtures", fx]),
+               validate_weights.run(["--weights_dir", wdir, "--fixtures", fx])]
+        flat, _ = load_npz(os.path.join(wdir, "VGG_ILSVRC_16_layers.npz"))
+        key = next(k for k in sorted(flat) if k.endswith("/w") and "conv" in k)
+        flat[key] = flat[key] + 0.05
+        bad = os.path.join(tmp, "bad", "vgg16.npz")
+        os.makedirs(os.path.dirname(bad))
+        save_npz(bad, flat)
+        rcs.append(validate_weights.run(["--weights", bad, "--model", "vgg16", "--fixtures", fx]))
+        out["seconds"] = time.perf_counter() - t0
+        with open(fx) as f:
+            rec = json.load(f)["models"]["vgg16"]["taps"]
+    if rcs != [0, 0, 1]:
+        raise AssertionError(f"validate_weights record, check, corrupted check: rc {rcs}, expected [0, 0, 1]")
+    out.update(rcs=rcs, corrupted=key, fc8_argmax=rec["fc8"]["argmax"],
+               fc7_shape=rec["fc7"]["shape"])
+    return out
+
+
+# the rehearsal at 5% of novel_v2's dimensions, with the real vocabulary
+# sizes; eval runs 2 seq launches per batch
+REH_ARGS = ["--scale", "0.05", "--iters", "50", "--steps_per_dispatch", "25",
+            "--batch_size", str(BATCH), "--extract_images", "64"]
+REH_WORDS, REH_ANSWERS = 12782, 1000
+
+
+def write_synthetic_vocab(folder: str) -> str:
+    """The rehearsal's ``--vocab_dir``: a train vocabulary and an answer
+    vocabulary of the frozen ones' sizes (the repository has neither)."""
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "vocab_train.json"), "w") as f:
+        json.dump([f"w{i}" for i in range(REH_WORDS)], f)
+    with open(os.path.join(folder, "oracle_extern_ans_vocab.json"), "w") as f:
+        json.dump([f"answer {i}" for i in range(REH_ANSWERS)], f)
+    return folder
+
+
+def run_rehearsal(smi: str) -> dict:
+    """``python -m novel_vqa_torch.utils.rehearsal`` as a user runs it, with a
+    synthetic vocabulary of the real sizes: every stage in the report, the
+    eval's seq launches, device memory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = write_synthetic_vocab(os.path.join(tmp, "vocabs"))
+        report = os.path.join(tmp, "report.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "novel_vqa_torch.utils.rehearsal", *REH_ARGS,
+             "--vocab_dir", vocab, "--work_dir", os.path.join(tmp, "work"), "--report", report],
+            cwd=ROOT, env=port_env(), capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"rehearsal rc {proc.returncode}:\n{proc.stderr[-3000:]}")
+        with open(report) as f:
+            rep = json.load(f)
+    stages = ("gen_raw", "prepro_vqa", "gen_fc7_store", "extract_compile", "extract_segment",
+              "train_1k_iters", "eval_full_split", "vqa_eval", "total")
+    missing = [s for s in stages if s not in rep["wall_s"]]
+    n_test = rep["dims"]["test_questions"]
+    eval_seq = L * -(-n_test // BATCH)
+    if missing or rep["launches"]["eval"]["lstm_seq"] != eval_seq:
+        raise AssertionError(f"rehearsal: stages missing {missing}, eval launches "
+                             f"{rep['launches']['eval']} (expected {eval_seq} seq)")
+    return {"card": smi, "seconds": seconds, "args": REH_ARGS, **rep}
+
+
+# the dp phase: the train slice's splits, a short run per route; the
+# plain runs here, the DP runs in one process per card under torchrun
+DP_ITERS, DP_SPD = 10, 5
+DP_RESULTS = ("OpenEnded_mscoco_val2014_lstm_novel_new_2_results.json",
+              "MultipleChoice_mscoco_val2014_lstm_novel_new_2_results.json")
+
+
+def dp_runs(tmp: str, dp: bool) -> dict:
+    """The dp phase's CLI runs in this process at the CLIs' dropout (0.5:
+    a rank's masks are its slice of the global batch's), writing under
+    ``tmp/<plain|dp>``: train_vqa_arch1 on both routes, eval_vqa_arch1 on
+    the plain default route's checkpoint, eval_vqa_arch2 on a seeded arch2
+    checkpoint; returns each run's kernel launches.  ``dp``: with
+    ``--data_parallel 1`` (the process group of torchrun)."""
+    from novel_vqa_torch.kernels import lstm as K
+    from novel_vqa_torch.kernels import lstm2 as K2
+    from novel_vqa_torch.train import eval_vqa_arch1, eval_vqa_arch2, train_vqa_arch1
+
+    base = os.path.join(tmp, "dp" if dp else "plain")
+    flag = ["--data_parallel", "1"] if dp else []
+    runs = {}
+
+    def run(name, main, argv):
+        K.lstm_seq.launches = K.lstm_step.launches = K2.lstm_seq2.launches = 0
+        main(data_argv(tmp) + argv + ["--device", "cuda"] + flag)
+        torch.cuda.synchronize()
+        runs[name] = {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches,
+                      "lstm_seq2": K2.lstm_seq2.launches}
+
+    for route in ("default", "fused2"):
+        with fused2_route(route == "fused2"):
+            run(f"train_{route}", train_vqa_arch1.main, [
+                "--checkpoint_path", os.path.join(base, route) + "/", "--max_iters", str(DP_ITERS),
+                "--save_checkpoint_every", str(DP_ITERS), "--steps_per_dispatch", str(DP_SPD),
+                "--log_every", str(DP_SPD)])
+    run("eval_arch1", eval_vqa_arch1.main, [
+        "--model_path", os.path.join(tmp, "plain", "default", "lstm.h5"),
+        "--out_path", os.path.join(base, "eval_arch1") + "/"])
+    run("eval_arch2", eval_vqa_arch2.main, [
+        "--model_path", os.path.join(tmp, "arch2.h5"), "--out_path", os.path.join(base, "eval_arch2") + "/"])
+    return runs
+
+
+def dp_worker(tmp: str) -> int:
+    """``chip_smoke.py --dp-worker DIR`` under torchrun: this rank joins one
+    NCCL group for its four DP runs (the CLIs join the group they find) and
+    writes their launches to ``DIR/launches_rank<r>.json``."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("nccl", init_method="env://")
+    try:
+        runs = dp_runs(tmp, dp=True)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"launches_rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(runs, f)
+    return 0
+
+
+def torchrun(world: int, *args, timeout: int = 300) -> float:
+    """``torch.distributed.run --standalone`` of ``args`` on ``world``
+    processes; its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           f"--nproc_per_node={world}", *args],
+                          cwd=ROOT, env=port_env(), capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {args[:2]} rc {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def run_dp(smi: str) -> dict:
+    """``--data_parallel 1`` through torchrun, one process per card (NCCL),
+    against the plain runs in this process: every rank's launches equal
+    the plain run's; at world size 1 the checkpoints and the result JSONs
+    are the plain ones byte for byte, at more the checkpoints within the
+    JAX tests' multi-step tolerance and the JSONs equal.  Then the user's
+    own command, ``torchrun -m novel_vqa_torch.train.eval_vqa_arch1
+    --data_parallel 1`` (the CLI joins and leaves its own group), whose
+    JSONs must be the plain eval's."""
+    from novel_vqa_torch.core.checkpoint import arch2_to_flat, load_flat_h5, save_flat_h5
+    from novel_vqa_torch.core.convert import arch2_params_to_numpy
+    from novel_vqa_torch.models.vqa import arch2
+
+    world = torch.cuda.device_count()
+    out = {"card": smi, "world_size": world, "iters": DP_ITERS, "steps_per_dispatch": DP_SPD}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_split(tmp, np.random.RandomState(SEED + 9),
+                    {"train": N_TRAIN, "val": N_VAL, "test": N_TEST_TRAIN})
+        cfg2 = arch2.Arch2Config(vocab_size=V, nhimage=F, num_output=O, seq_length=T)
+        params2 = arch2.init_params(cfg2, torch.Generator().manual_seed(SEED + 9), "cpu")
+        save_flat_h5(os.path.join(tmp, "arch2.h5"), arch2_to_flat(arch2_params_to_numpy(params2)))
+        t0 = time.perf_counter()
+        plain = dp_runs(tmp, dp=False)
+        out["plain_s"] = time.perf_counter() - t0
+        out["torchrun_s"] = torchrun(world, str(ROOT / "chip_smoke.py"), "--dp-worker", tmp)
+        cli_out = os.path.join(tmp, "cli_eval_arch1") + "/"
+        out["torchrun_cli_s"] = torchrun(
+            world, "-m", "novel_vqa_torch.train.eval_vqa_arch1", *data_argv(tmp),
+            "--model_path", os.path.join(tmp, "plain", "default", "lstm.h5"),
+            "--out_path", cli_out, "--data_parallel", "1")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"launches_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        if any(rk != plain for rk in ranks):
+            raise AssertionError(f"launches per rank {ranks} != the plain runs' {plain}")
+        out["launches"] = plain
+        checks = {}
+        for route in ("default", "fused2"):
+            a, b = (os.path.join(tmp, d, route, "lstm.h5") for d in ("plain", "dp"))
+            if world == 1:
+                checks[f"train_{route}_identical"] = Path(a).read_bytes() == Path(b).read_bytes()
+            else:
+                fa, fb = load_flat_h5(a), load_flat_h5(b)
+                checks[f"train_{route}_close"] = all(
+                    np.allclose(fb[k], fa[k], rtol=5e-4, atol=1e-5) for k in fa)
+        for ev in ("eval_arch1", "eval_arch2"):
+            checks[f"{ev}_identical"] = all(
+                Path(tmp, "plain", ev, n).read_bytes() == Path(tmp, "dp", ev, n).read_bytes()
+                for n in DP_RESULTS)
+        checks["torchrun_cli_eval_arch1_identical"] = all(
+            Path(tmp, "plain", "eval_arch1", n).read_bytes() == Path(cli_out, n).read_bytes()
+            for n in DP_RESULTS)
+        out["checks"] = checks
+        if not all(checks.values()):
+            raise AssertionError(f"dp vs plain: {checks}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seq2-mutants", action="store_true",
                         help="only show that the seq2 check rejects kernels that round otherwise")
+    parser.add_argument("--dp-worker", metavar="DIR",
+                        help="(the dp phase's torchrun processes) run the DP CLIs on DIR's data")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 1
+    if opts.dp_worker:
+        return dp_worker(opts.dp_worker)
     from novel_vqa_torch.kernels import build
     from novel_vqa_torch.kernels import lstm as K
     from novel_vqa_torch.kernels import lstm2 as K2
@@ -2677,6 +2887,15 @@ def main(argv=None) -> int:
     emit({"phase": "lf", **lf_out})
     pl_out = run_pipeline(K, dev, smi)
     emit({"phase": "pipeline", **pl_out})
+    sc_out = run_selfcheck()
+    emit({"phase": "selfcheck", **sc_out})
+    op_out = run_op_profile(K, K2, dev, smi)
+    emit({"phase": "op_profile", **op_out})
+    emit({"phase": "validate_weights", **run_validate_weights(smi)})
+    reh_out = run_rehearsal(smi)
+    emit({"phase": "rehearsal", **reh_out})
+    dp_out = run_dp(smi)
+    emit({"phase": "dp", **dp_out})
 
     def entry(name, rows, launches, replaces, source=SOURCE):
         timed = [r for r in rows if "kernel_ms" in r]
@@ -2722,6 +2941,15 @@ def main(argv=None) -> int:
     kernels[0]["launches_lf"] = lf_out["launches_lf"]
     kernels[0]["launches_pipeline"] = pl_out["launches_seq"]
     kernels[1]["launches_pipeline"] = pl_out["launches_step"]
+    # on the tools' and DP's paths: the preflight (its own process), the
+    # rehearsal's full-split eval (2 per batch), op_profile's FUSED2 arch1
+    # loop (one seq2 launch per step) and the dp phase's plain runs, which
+    # every rank repeats (train both routes, both evals)
+    for entry_, name in zip(kernels, ("lstm_seq", "lstm_step", "lstm_seq2")):
+        entry_["launches_selfcheck"] = sc_out["launches"][name]
+        entry_["launches_dp"] = sum(run[name] for run in dp_out["launches"].values())
+    kernels[0]["launches_rehearsal_eval"] = reh_out["launches"]["eval"]["lstm_seq"]
+    kernels[2]["launches_op_profile"] = op_out["fused2"]["launches"]["lstm_seq2"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})

@@ -128,14 +128,15 @@ def init_params(
     return params
 
 
-def _embed(params, cfg: AEConfig, tokens, generator, deterministic: bool) -> torch.Tensor:
+def _embed(params, cfg: AEConfig, tokens, generator, deterministic: bool,
+           dp=None) -> torch.Tensor:
     """The variant's lookup; null tokens (0) read token 1's row, as
-    ``it[eq(it,0)]=1``."""
+    ``it[eq(it,0)]=1``.  The batch is the last axis of ``tokens``."""
     x = embedding_lookup(params["lookup"], torch.clamp(tokens, min=1))
     if cfg.lookup_frozen:
         x = x.detach()
     if cfg.lookup_has_dropout_tanh:
-        x = torch.tanh(dropout(x, 0.5, generator, deterministic))
+        x = torch.tanh(dropout(x, 0.5, generator, deterministic, dp=dp, axis=tokens.dim() - 1))
     return x
 
 
@@ -143,7 +144,8 @@ def _start(cfg: AEConfig, N: int, device) -> torch.Tensor:
     return torch.full((N,), cfg.start_token, dtype=torch.long, device=device)
 
 
-def _scan_encoder(layers, xs, active, cfg: AEConfig, generator, deterministic: bool) -> State:
+def _scan_encoder(layers, xs, active, cfg: AEConfig, generator, deterministic: bool,
+                  dp=None) -> State:
     """The encoder's steps; ``active`` (T,) bool holds the state on the
     steps every row skips (the batch-wide can_skip)."""
     T, N, _ = xs.shape
@@ -151,7 +153,7 @@ def _scan_encoder(layers, xs, active, cfg: AEConfig, generator, deterministic: b
     for t in range(T):
         c_new, h_new = lstm_stack_step(
             layers, xs[t], (c, h), dropout_rate=cfg.dropout,
-            generator=generator, deterministic=deterministic,
+            generator=generator, deterministic=deterministic, dp=dp,
         )
         c = torch.where(active[t], c_new, c)
         h = torch.where(active[t], h_new, h)
@@ -166,38 +168,45 @@ def encode(
     *,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    dp=None,
 ) -> State:
-    """The variant's encoder: the final (c, h), each (layers, N, H)."""
+    """The variant's encoder: the final (c, h), each (layers, N, H).  On
+    a DP group (``dp``, ``parallel/mesh.DPGroup``) ``seq`` is this rank's
+    slice of the batch, and the can_skip and the dropout masks span the
+    global batch, as they do on one device."""
     _check_compute(cfg)
     L, N = seq.shape
-    embs = _embed(params, cfg, seq, generator, deterministic)  # (L, N, E)
+    embs = _embed(params, cfg, seq, generator, deterministic, dp)  # (L, N, E)
     token_active = (seq != 0).any(dim=1)  # (L,) the batch-wide can_skip
+    if dp is not None:
+        token_active = dp.any(token_active)
     if cfg.variant in ("arch2", "null"):
-        start_emb = _embed(params, cfg, _start(cfg, N, seq.device), generator, deterministic)
+        start_emb = _embed(params, cfg, _start(cfg, N, seq.device), generator, deterministic, dp)
         xs = torch.cat([imgs[None], start_emb[None], embs], dim=0)
         active = torch.cat([token_active.new_ones(2), token_active])
     else:
         xs, active = embs, token_active
-    return _scan_encoder(params["encoder"], xs, active, cfg, generator, deterministic)
+    return _scan_encoder(params["encoder"], xs, active, cfg, generator, deterministic, dp)
 
 
-def _decoder_steps(params, cfg: AEConfig, init_state: State, seq, generator, deterministic):
+def _decoder_steps(params, cfg: AEConfig, init_state: State, seq, generator, deterministic,
+                   dp=None):
     """The teacher-forced decoder's steps: yields each step's (N, V+1)
     logits, step t fed START (t = 0) or seq[t-1]."""
     N = seq.shape[1]
-    start_emb = _embed(params, cfg, _start(cfg, N, seq.device), generator, deterministic)
-    embs = _embed(params, cfg, seq, generator, deterministic)
+    start_emb = _embed(params, cfg, _start(cfg, N, seq.device), generator, deterministic, dp)
+    embs = _embed(params, cfg, seq, generator, deterministic, dp)
     xs = torch.cat([start_emb[None], embs], dim=0)  # (L+1, N, E)
     dec = params["decoder"]
     state = init_state
     for t in range(xs.shape[0]):
         state = lstm_stack_step(
             dec["layers"], xs[t], state, dropout_rate=cfg.dropout,
-            generator=generator, deterministic=deterministic,
+            generator=generator, deterministic=deterministic, dp=dp,
         )
         top = state[1][-1]
         if not deterministic:
-            top = dropout(top, cfg.dropout, generator, False)
+            top = dropout(top, cfg.dropout, generator, False, dp=dp)
         yield torch.matmul(top, dec["proj_w"]) + dec["proj_b"]
 
 
@@ -211,54 +220,61 @@ def decode_teacher_forced(params, cfg: AEConfig, init_state: State, seq, *,
 
 
 def decode_teacher_forced_nll(params, cfg: AEConfig, init_state: State, seq, *,
-                              generator=None, deterministic: bool = True):
+                              generator=None, deterministic: bool = True, dp=None):
     """The decoder and LanguageModelCriterion fused: the masked NLL
     accumulates step by step (a logsumexp and a gather at the target), so
     the (L+1, N, V+1) logprobs, 1.4 GB at the reference width, are never
     built.  The same math and draws as ``sequence_nll(decode_teacher_forced
-    (...), seq)``.  Returns (loss, n)."""
+    (...), seq)``.  Returns (loss, n).  On a DP group (``dp``) ``n`` is the
+    global count of scored tokens, so the ranks' losses (and gradients)
+    sum to the single-device ones."""
     Mp1 = params["decoder"]["proj_w"].shape[1]
     targets, scored = sequence_targets(seq, Mp1)
     gather_idx = torch.clamp(targets - 1, 0, Mp1 - 1)  # (L+1, N)
     loss_sum = seq.new_zeros((), dtype=torch.float32)
-    steps = _decoder_steps(params, cfg, init_state, seq, generator, deterministic)
+    steps = _decoder_steps(params, cfg, init_state, seq, generator, deterministic, dp)
     for t, logits in enumerate(steps):
         lse = torch.logsumexp(logits, dim=-1)
         picked = torch.gather(logits, 1, gather_idx[t][:, None])[:, 0] - lse
         loss_sum = loss_sum - torch.where(scored[t], picked, torch.zeros_like(picked)).sum()
     n = scored.sum()
+    if dp is not None:
+        n = dp.sum(n)
     return loss_sum / n.to(torch.float32), n
 
 
-def _vqa_arch_decoder_init(params, cfg: AEConfig, c_enc, h_enc, imgs, generator, deterministic):
+def _vqa_arch_decoder_init(params, cfg: AEConfig, c_enc, h_enc, imgs, generator, deterministic,
+                           dp=None):
     """The multimodal skip-connected decoder seed (AutoEncoder_vqa_arch.lua:326-350)."""
     H = cfg.rnn_size
     c1, h1 = c_enc[-1], h_enc[-1]
     joined = torch.cat([c1, h1], dim=-1)  # [c, h] (JoinTable order)
     mm = axb_apply(params["multimodal"], joined, imgs, dropout_rate=0.5,
-                   generator=generator, deterministic=deterministic)
-    mm = dropout(mm, 0.5, generator, deterministic)
+                   generator=generator, deterministic=deterministic, dp=dp)
+    mm = dropout(mm, 0.5, generator, deterministic, dp=dp)
     return (c1 + mm[..., :H])[None], (h1 + mm[..., H:])[None]
 
 
 def _decoder_start_state(params, cfg: AEConfig, seq, imgs, sent_input, seq_input,
-                         encoder_skip: bool, generator, deterministic: bool) -> State:
+                         encoder_skip: bool, generator, deterministic: bool, dp=None) -> State:
     """The encoder (and for vqa_arch the multimodal seed): the decoder's
     initial state."""
+    kw = dict(generator=generator, deterministic=deterministic, dp=dp)
     if cfg.variant == "text_nostart":
-        return encode(params, cfg, seq, generator=generator, deterministic=deterministic)
+        return encode(params, cfg, seq, **kw)
     if cfg.variant == "arch2":
-        return encode(params, cfg, seq, imgs, generator=generator, deterministic=deterministic)
+        return encode(params, cfg, seq, imgs, **kw)
     if cfg.variant == "null":
-        return encode(params, cfg, seq_input, imgs, generator=generator, deterministic=deterministic)
+        return encode(params, cfg, seq_input, imgs, **kw)
     if cfg.variant == "vqa_arch":
         H = cfg.rnn_size
         if encoder_skip:
             sent = sent_input.detach()
             c_enc, h_enc = sent[None, :, :H], sent[None, :, H:]
         else:
-            c_enc, h_enc = encode(params, cfg, seq, generator=generator, deterministic=deterministic)
-        return _vqa_arch_decoder_init(params, cfg, c_enc, h_enc, imgs, generator, deterministic)
+            c_enc, h_enc = encode(params, cfg, seq, **kw)
+        return _vqa_arch_decoder_init(params, cfg, c_enc, h_enc, imgs, generator, deterministic,
+                                      dp)
     raise ValueError(cfg.variant)
 
 
@@ -275,14 +291,17 @@ def apply(params, cfg: AEConfig, seq: torch.Tensor, *, imgs=None, sent_input=Non
 
 def apply_nll(params, cfg: AEConfig, seq: torch.Tensor, *, imgs=None, sent_input=None,
               seq_input=None, encoder_skip: bool = False, generator=None,
-              deterministic: bool = True):
+              deterministic: bool = True, dp=None):
     """The whole AE to the fused masked NLL: (loss, n), equal to
-    ``sequence_nll(apply(...), seq)`` from the same generator state."""
+    ``sequence_nll(apply(...), seq)`` from the same generator state.  On a
+    DP group (``dp``) ``seq`` is this rank's slice and both the can_skip and
+    the count span the global batch: the ranks' losses sum to one
+    device's."""
     _check_compute(cfg)
     state = _decoder_start_state(params, cfg, seq, imgs, sent_input, seq_input,
-                                 encoder_skip, generator, deterministic)
+                                 encoder_skip, generator, deterministic, dp)
     return decode_teacher_forced_nll(params, cfg, state, seq, generator=generator,
-                                     deterministic=deterministic)
+                                     deterministic=deterministic, dp=dp)
 
 
 def loss_fn(params, cfg: AEConfig, seq, generator, **kwargs) -> torch.Tensor:

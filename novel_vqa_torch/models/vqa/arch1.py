@@ -23,7 +23,6 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from novel_vqa_torch.core.device import resolve_device
-from novel_vqa_torch.core.tree import value_and_grad
 from novel_vqa_torch.models.vqa.eval_paths import build_eval_fns
 from novel_vqa_torch.ops import optim
 from novel_vqa_torch.ops.dropout import dropout
@@ -31,7 +30,8 @@ from novel_vqa_torch.ops.embedding import embedding_lookup
 from novel_vqa_torch.ops.fusion import askipb_apply, axb_apply
 from novel_vqa_torch.ops.losses import cross_entropy
 from novel_vqa_torch.ops.lstm import lstm_encode, lstm_layer_init, pack_state
-from novel_vqa_torch.parallel.dp import gather_batch, vqa_scan_steps
+from novel_vqa_torch.parallel.dp import make_vqa_dp_indexed_step, make_vqa_dp_steps_scan
+from novel_vqa_torch.parallel.mesh import DPGroup, make_dp_train_step
 
 
 class Arch1Config(NamedTuple):
@@ -95,9 +95,12 @@ def apply(
     *,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    dp=None,
 ) -> torch.Tensor:
     """Forward pass -> (N, num_output) answer scores.  Training mode
-    (``deterministic=False``) draws its dropout masks from ``generator``."""
+    (``deterministic=False``) draws its dropout masks from ``generator``;
+    on a DP group (``dp``, a ``parallel.mesh.DPGroup``) at the global
+    batch's shape, this rank's rows taken (``ops/dropout.py``)."""
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"arch1 compute_dtype={cfg.compute_dtype!r}: only float32 is ported "
@@ -112,24 +115,24 @@ def apply(
 
     # embedding: tanh(dropout(W[t] + b)), the Linear->Dropout->Tanh order
     emb = embedding_lookup(params["embedding"]["w"], tokens, params["embedding"]["b"])
-    emb = torch.tanh(dropout(emb, cfg.dropout, generator, deterministic))
+    emb = torch.tanh(dropout(emb, cfg.dropout, generator, deterministic, dp=dp))
     xs = emb.transpose(0, 1)  # (D, N, E) time-major
     mask = (tokens != 0).to(xs.dtype).transpose(0, 1)  # (D, N)
     c, h = lstm_encode(
         params["encoder"], xs, mask, dropout_rate=cfg.dropout,
-        generator=generator, deterministic=deterministic, remat=cfg.remat,
+        generator=generator, deterministic=deterministic, remat=cfg.remat, dp=dp,
     )
     tv_q = pack_state(c, h)  # (N, 2*rnn*layers)
     fused = fuse(
         params["fusion"], tv_q, image, dropout_rate=cfg.dropout,
-        generator=generator, deterministic=deterministic,
+        generator=generator, deterministic=deterministic, dp=dp,
     )
-    fused = dropout(fused, cfg.dropout, generator, deterministic)
+    fused = dropout(fused, cfg.dropout, generator, deterministic, dp=dp)
     return torch.matmul(fused, params["classifier"]["w"]) + params["classifier"]["b"]
 
 
-def loss_fn(params, cfg, tokens, image, labels, generator) -> torch.Tensor:
-    scores = apply(params, cfg, tokens, image, generator=generator, deterministic=False)
+def loss_fn(params, cfg, tokens, image, labels, generator, dp=None) -> torch.Tensor:
+    scores = apply(params, cfg, tokens, image, generator=generator, deterministic=False, dp=dp)
     return cross_entropy(scores, labels)
 
 
@@ -163,32 +166,33 @@ def make_optimizer(
 def train_step(cfg, tx, params, opt_state, tokens, image, labels, generator):
     """One forward/backward/update step (replaces JdJ + optim.rmsprop,
     002_train_baseline.lua:272-335,408): returns (params, opt_state, loss),
-    the loss a 0-d tensor left on the device."""
-    loss, grads = value_and_grad(loss_fn)(params, cfg, tokens, image, labels, generator)
-    updates, opt_state = tx.update(grads, opt_state, params)
-    return optim.apply_updates(params, updates), opt_state, loss
+    the loss a 0-d tensor left on the device.  The DP step on the group of
+    one process (``parallel/mesh.make_dp_train_step``)."""
+    step = make_dp_train_step(cfg, tx, DPGroup(0, 1, tokens.device), loss_fn)
+    return step(params, opt_state, generator, tokens, image, labels)
 
 
 def train_step_indexed(cfg, tx, params, opt_state, data, qinds, generator):
     """:func:`train_step` on rows ``qinds`` of a device-resident store
     (tokens (N, D), image (M, F), img_pos (N,), answers (N,)): only the
-    (B,) index vector crosses from the host."""
-    tokens, image, labels = gather_batch(data, qinds)
-    return train_step(cfg, tx, params, opt_state, tokens, image, labels, generator)
+    (B,) index vector crosses from the host
+    (``parallel/dp.make_vqa_dp_indexed_step`` on one process)."""
+    step = make_vqa_dp_indexed_step(loss_fn, cfg, tx, DPGroup(0, 1, qinds.device))
+    return step(params, opt_state, data, qinds, generator)
 
 
 def train_steps_scan(cfg, tx, params, opt_state, data, n_steps: int, batch_size: int,
                      generator):
     """``n_steps`` iterations with on-device batch sampling and no host
-    sync (``parallel/dp.vqa_scan_steps``): returns (params, opt_state,
-    losses (n_steps,))."""
-    return vqa_scan_steps(
-        loss_fn, cfg, tx, params, opt_state, data, generator, n_steps, batch_size
-    )
+    sync (``parallel/dp.make_vqa_dp_steps_scan`` on one process): returns
+    (params, opt_state, losses (n_steps,))."""
+    steps = make_vqa_dp_steps_scan(loss_fn, cfg, tx, DPGroup(0, 1, data["tokens"].device),
+                                   n_steps, batch_size)
+    return steps(params, opt_state, data, generator)
 
 
 @torch.inference_mode()
-def eval_step(cfg: Arch1Config, params, tokens, image, labels):
+def eval_step(cfg: Arch1Config, params, tokens, image, labels, dp=None):
     """(loss, scores) of one batch (the JAX package's jitted eval_step)."""
     scores = apply(params, cfg, tokens, image, deterministic=True)
     return cross_entropy(scores, labels), scores

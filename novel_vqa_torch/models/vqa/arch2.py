@@ -25,14 +25,14 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from novel_vqa_torch.core.device import resolve_device
-from novel_vqa_torch.core.tree import value_and_grad
 from novel_vqa_torch.models.seq import autoencoder as ae
 from novel_vqa_torch.models.vqa.eval_paths import build_eval_fns
 from novel_vqa_torch.ops import optim
 from novel_vqa_torch.ops.dropout import dropout
 from novel_vqa_torch.ops.losses import cross_entropy
 from novel_vqa_torch.ops.lstm import lstm_layer_init
-from novel_vqa_torch.parallel.dp import gather_batch, vqa_scan_steps
+from novel_vqa_torch.parallel.dp import make_vqa_dp_indexed_step, make_vqa_dp_steps_scan
+from novel_vqa_torch.parallel.mesh import DPGroup
 
 
 class Arch2Config(NamedTuple):
@@ -91,18 +91,21 @@ def apply(
     *,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    dp=None,
 ) -> torch.Tensor:
-    """Forward pass -> (N, num_output) answer scores."""
+    """Forward pass -> (N, num_output) answer scores.  On a DP group
+    (``dp``) the encoder's batch-wide can_skip spans the global batch, and
+    the dropout masks are the global batch's (``ops/dropout.py``)."""
     img_proj = torch.matmul(image, params["cnn_proj"]["w"]) + params["cnn_proj"]["b"]
     enc_params = {"lookup": params["lookup"], "encoder": params["encoder"]}
     _, h = ae.encode(enc_params, cfg.ae_cfg, tokens.transpose(0, 1), img_proj,
-                     generator=generator, deterministic=deterministic)
-    top_h = dropout(h[-1], cfg.dropout, generator, deterministic)
+                     generator=generator, deterministic=deterministic, dp=dp)
+    top_h = dropout(h[-1], cfg.dropout, generator, deterministic, dp=dp)
     return torch.matmul(top_h, params["classifier"]["w"]) + params["classifier"]["b"]
 
 
-def loss_fn(params, cfg, tokens, image, labels, generator) -> torch.Tensor:
-    scores = apply(params, cfg, tokens, image, generator=generator, deterministic=False)
+def loss_fn(params, cfg, tokens, image, labels, generator, dp=None) -> torch.Tensor:
+    scores = apply(params, cfg, tokens, image, generator=generator, deterministic=False, dp=dp)
     return cross_entropy(scores, labels)
 
 
@@ -121,26 +124,25 @@ def make_optimizer(
 
 def train_step_indexed(cfg, tx, params, opt_state, data, qinds, generator):
     """One step on rows ``qinds`` of a device-resident store: returns
-    (params, opt_state, loss), the loss a 0-d tensor left on the device."""
-    tokens, image, labels = gather_batch(data, qinds)
-    loss, grads = value_and_grad(loss_fn)(params, cfg, tokens, image, labels, generator)
-    updates, opt_state = tx.update(grads, opt_state, params)
-    return optim.apply_updates(params, updates), opt_state, loss
+    (params, opt_state, loss), the loss a 0-d tensor left on the device
+    (``parallel/dp.make_vqa_dp_indexed_step`` on one process)."""
+    step = make_vqa_dp_indexed_step(loss_fn, cfg, tx, DPGroup(0, 1, qinds.device))
+    return step(params, opt_state, data, qinds, generator)
 
 
 def train_steps_scan(cfg, tx, params, opt_state, data, n_steps: int, batch_size: int,
                      generator):
     """``n_steps`` iterations with on-device batch sampling and no host
-    sync (``parallel/dp.vqa_scan_steps``)."""
-    return vqa_scan_steps(
-        loss_fn, cfg, tx, params, opt_state, data, generator, n_steps, batch_size
-    )
+    sync (``parallel/dp.make_vqa_dp_steps_scan`` on one process)."""
+    steps = make_vqa_dp_steps_scan(loss_fn, cfg, tx, DPGroup(0, 1, data["tokens"].device),
+                                   n_steps, batch_size)
+    return steps(params, opt_state, data, generator)
 
 
 @torch.inference_mode()
-def eval_step(cfg: Arch2Config, params, tokens, image, labels):
+def eval_step(cfg: Arch2Config, params, tokens, image, labels, dp=None):
     """(loss, scores) of one batch (the JAX package's jitted eval_step)."""
-    scores = apply(params, cfg, tokens, image, deterministic=True)
+    scores = apply(params, cfg, tokens, image, deterministic=True, dp=dp)
     return cross_entropy(scores, labels), scores
 
 

@@ -7,8 +7,9 @@ gets the same four paths from :func:`build_eval_fns`; all mirror the
 reference's full-split eval loop (004_eval_model.lua:202-231, which holds the
 whole ``fv_im`` store resident for the pass):
 
-* ``eval_step_indexed(cfg, params, data, qinds)`` -> ``(loss, scores)``: one
-  batch gathered on the device from the store; only the index vector moves.
+* ``eval_step_indexed(cfg, params, data, qinds, dp=None)`` -> ``(loss,
+  scores)``: one batch gathered on the device from the store; only the index
+  vector moves (``dp``: this rank's rows of a DP batch, ``parallel/mesh``).
 * ``eval_predict_indexed`` -> ``(loss, pred, mc_pred)``: the same plus the
   OE/MC argmax next to the scores (``predict.device_predict``).
 * ``eval_predict_scan(cfg, params, data, n_batches, batch_size)`` ->
@@ -48,18 +49,18 @@ def build_eval_fns(apply_fn):
     caller trims preds/scores by ``n`` and discards the losses; a caller
     that starts consuming them must mask the padded rows first."""
 
-    def _forward(cfg, params, data, qinds):
+    def _forward(cfg, params, data, qinds, dp=None):
         tokens, image, labels = gather_batch(data, qinds)
-        scores = apply_fn(params, cfg, tokens, image, deterministic=True)
+        scores = apply_fn(params, cfg, tokens, image, deterministic=True, dp=dp)
         return cross_entropy(scores, labels), scores
 
     @torch.inference_mode()
-    def eval_step_indexed(cfg, params, data, qinds):
-        return _forward(cfg, params, data, qinds)
+    def eval_step_indexed(cfg, params, data, qinds, dp=None):
+        return _forward(cfg, params, data, qinds, dp)
 
     @torch.inference_mode()
-    def eval_predict_indexed(cfg, params, data, qinds):
-        loss, scores = _forward(cfg, params, data, qinds)
+    def eval_predict_indexed(cfg, params, data, qinds, dp=None):
+        loss, scores = _forward(cfg, params, data, qinds, dp)
         pred, mc_pred = device_predict(scores, _gather_choices(data, qinds))
         return loss, pred, mc_pred
 

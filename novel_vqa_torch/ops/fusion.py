@@ -30,10 +30,11 @@ def _projections(
     rate: float,
     generator: Optional[torch.Generator],
     deterministic: bool,
+    dp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     if generator is not None and not deterministic and rate > 0.0:
-        q = dropout(q, rate, generator, deterministic=False)
-        i = dropout(i, rate, generator, deterministic=False)
+        q = dropout(q, rate, generator, deterministic=False, dp=dp)
+        i = dropout(i, rate, generator, deterministic=False, dp=dp)
     qc = torch.tanh(torch.matmul(q, params["wq"]) + params["bq"])
     ic = torch.tanh(torch.matmul(i, params["wi"]) + params["bi"])
     return qc, ic
@@ -47,8 +48,9 @@ def axb_apply(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    dp=None,
 ) -> torch.Tensor:
-    qc, ic = _projections(params, q, i, dropout_rate, generator, deterministic)
+    qc, ic = _projections(params, q, i, dropout_rate, generator, deterministic, dp)
     return qc * ic
 
 
@@ -60,8 +62,9 @@ def askipb_apply(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    dp=None,
 ) -> torch.Tensor:
-    qc, ic = _projections(params, q, i, dropout_rate, generator, deterministic)
+    qc, ic = _projections(params, q, i, dropout_rate, generator, deterministic, dp)
     return qc + qc * ic
 
 
@@ -73,6 +76,7 @@ def a_b_apply(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    dp=None,
 ) -> torch.Tensor:
-    qc, ic = _projections(params, q, i, dropout_rate, generator, deterministic)
+    qc, ic = _projections(params, q, i, dropout_rate, generator, deterministic, dp)
     return torch.cat([qc, ic], dim=-1)

@@ -35,6 +35,7 @@ and run their plain versions on CPU tensors; their outputs carry no
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -46,6 +47,21 @@ from novel_vqa_torch.ops.dropout import dropout
 from novel_vqa_torch.ops.lstm2 import fused2_encode_train
 
 LSTMLayerParams = Dict[str, torch.Tensor]  # {"wx", "bx", "wh", "bh"}
+
+
+@contextlib.contextmanager
+def fused2_route(on: bool):
+    """``NOVEL_VQA_FUSED2=1`` inside the block when ``on``, unset when not;
+    the caller's setting afterwards (the route is read at each encode)."""
+    old = os.environ.pop("NOVEL_VQA_FUSED2", None)
+    if on:
+        os.environ["NOVEL_VQA_FUSED2"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("NOVEL_VQA_FUSED2", None)
+        if old is not None:
+            os.environ["NOVEL_VQA_FUSED2"] = old
 
 
 def lstm_layer_init(
@@ -104,17 +120,19 @@ def lstm_stack_step(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    dp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-layer step: layer k+1 reads layer k's new h.  Inter-layer
     dropout on the input of layers > 1 only (misc/LSTM.lua:36-38: none on
-    the first layer's input and none on the recurrent path)."""
+    the first layer's input and none on the recurrent path); on a DP group
+    (``dp``) its masks are the global batch's (``ops/dropout.py``)."""
     c, h = state
     new_c: List[torch.Tensor] = []
     new_h: List[torch.Tensor] = []
     inp = x
     for layer_idx, layer in enumerate(params):
         if layer_idx > 0:
-            inp = dropout(inp, dropout_rate, generator, deterministic)
+            inp = dropout(inp, dropout_rate, generator, deterministic, dp=dp)
         c_l, h_l = lstm_step(
             layer, inp, c[layer_idx], h[layer_idx], training=not deterministic
         )
@@ -156,6 +174,7 @@ def lstm_encode(
     deterministic: bool = True,
     return_sequence: bool = False,
     remat: bool = False,
+    dp=None,
 ):
     """Masked dense scan over time.
 
@@ -166,7 +185,8 @@ def lstm_encode(
     Returns the final (c, h), each (L, N, H), or ``((c, h), (cs, hs))`` with
     the per-step states, each (T, L, N, H), when ``return_sequence``.
     ``generator`` draws the dropout masks of training mode
-    (``deterministic=False``).
+    (``deterministic=False``), at the global batch's shape on a DP group
+    (``dp``).
     """
     if remat:
         raise NotImplementedError(
@@ -194,7 +214,7 @@ def lstm_encode(
         and xs.dtype == torch.float32
         and xs.is_cuda
     ):
-        return fused2_encode_train(params, xs, mask, dropout_rate, generator)
+        return fused2_encode_train(params, xs, mask, dropout_rate, generator, dp)
 
     seq_len, batch, _ = xs.shape
     if init_state is None:
@@ -206,7 +226,7 @@ def lstm_encode(
     for t in range(seq_len):
         c_new, h_new = lstm_stack_step(
             params, xs[t], (c, h), dropout_rate=dropout_rate,
-            generator=generator, deterministic=deterministic,
+            generator=generator, deterministic=deterministic, dp=dp,
         )
         m = mask[t][None, :, None] > 0
         c = torch.where(m, c_new, c)

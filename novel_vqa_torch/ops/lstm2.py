@@ -166,18 +166,21 @@ def fused2_encode_train(
     mask: torch.Tensor,  # (T, N)
     dropout_rate: float,
     generator: Optional[torch.Generator],
+    dp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training encode of exactly two layers (pallas_lstm2.py:336-378):
     returns the stacked final (c, h), each (2, N, H).  One (T, N, H)
     inter-layer dropout multiplier, in {0, 1/keep}, is drawn for the whole
-    sequence; the per-layer ``bx + bh`` is summed in f32, then cast to
+    sequence (on a DP group ``dp``, this rank's slice of the global
+    batch's); the per-layer ``bx + bh`` is summed in f32, then cast to
     bf16 with the weights and inputs."""
     if len(layers) != 2:
         raise ValueError(f"fused2_encode_train takes exactly 2 layers, got {len(layers)}")
     T, N, _ = xs.shape
     H = layers[0]["wh"].shape[0]
     ones = torch.ones(T, N, H, device=xs.device)
-    drop = dropout(ones, dropout_rate, generator, deterministic=generator is None).to(BF16)
+    drop = dropout(ones, dropout_rate, generator, deterministic=generator is None,
+                   dp=dp, axis=1).to(BF16)
     l1, l2 = layers
     c1, h1, c2, h2 = Fused2.apply(
         xs.to(BF16), mask.to(F32), drop,

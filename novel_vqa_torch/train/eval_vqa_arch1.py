@@ -10,6 +10,8 @@ every test question in fixed-size batches and writes:
 
     python -m novel_vqa_torch.train.eval_vqa_arch1 --model_path model/lstm.h5
     python -m novel_vqa_torch.train.eval_vqa_arch1 ... --device cpu
+    torchrun --standalone --nproc_per_node=<cards> -m \\
+        novel_vqa_torch.train.eval_vqa_arch1 ... --data_parallel 1
 """
 
 from __future__ import annotations
@@ -23,10 +25,10 @@ import torch
 from novel_vqa_torch.core.checkpoint import arch1_from_flat, load_flat_h5
 from novel_vqa_torch.core.config import parse_config
 from novel_vqa_torch.core.convert import arch1_params_from_numpy
-from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.data.vqa import VQAData
 from novel_vqa_torch.models.vqa import arch1
 from novel_vqa_torch.models.vqa.predict import host_mc_predict
+from novel_vqa_torch.parallel.mesh import cli_group
 from novel_vqa_torch.train.eval_loop import run_full_split
 
 
@@ -49,7 +51,8 @@ class EvalConfig:
     out_path: str = "result/"
     result_name: str = "mscoco_val2014_lstm_novel_new_2"
     seed: int = 123
-    # multi-GPU eval comes with the multi-GPU slice: 1 raises at once
+    # 1 = data-parallel over the process group (torchrun: one process per
+    # card; parallel/mesh.py): each rank forwards its slice of every batch
     data_parallel: int = 0
     # 1 (default) = upload the test split ONCE and gather batches on the
     # device; 0 = stream each batch host->device (for stores larger than
@@ -60,14 +63,20 @@ class EvalConfig:
 
 def main(argv=None):
     opt = parse_config(EvalConfig, argv, description=__doc__)
-    if opt.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel 1: multi-GPU eval comes with the multi-GPU slice (ROADMAP A13)"
-        )
-    device = resolve_device(opt.device)
+    group = cli_group(opt.data_parallel, opt.device, opt.batch_size)
+    try:
+        return _run(opt, group)
+    finally:
+        group.close()
+
+
+def _run(opt: EvalConfig, group):
+    device = group.device
+    writer = group.is_writer
     # full fp32 in the fusion/classifier products, as the CPU reference
     torch.backends.cuda.matmul.allow_tf32 = False
-    os.makedirs(opt.out_path, exist_ok=True)
+    if writer:
+        os.makedirs(opt.out_path, exist_ok=True)
 
     split_dims = (
         [int(x) for x in opt.img_norm_split.split(",")] if opt.img_norm_split else None
@@ -96,13 +105,15 @@ def main(argv=None):
 
     pred, mc_pred, scores = run_full_split(
         arch1, cfg, params, data, "test", opt.batch_size,
-        device=device,
         hbm_resident=bool(opt.hbm_resident),
+        group=group,
         want="predict" if opt.hbm_resident else "scores",
     )
     qids = data.d["question_id_test"]
     if pred is None:
         pred = scores.argmax(axis=1) + 1  # 1-indexed answer ids
+    if not writer:  # only rank 0 writes the result files
+        return scores, qids
 
     ix_to_ans = data.ix_to_ans
     oe = [

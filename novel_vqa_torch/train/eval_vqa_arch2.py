@@ -25,11 +25,11 @@ import torch
 from novel_vqa_torch.core.checkpoint import arch2_from_flat, load_flat_h5
 from novel_vqa_torch.core.config import parse_config
 from novel_vqa_torch.core.convert import arch2_params_from_numpy
-from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.core.h5 import update_h5
 from novel_vqa_torch.data.vqa import VQAData
 from novel_vqa_torch.models.vqa import arch2
 from novel_vqa_torch.models.vqa.predict import host_mc_predict
+from novel_vqa_torch.parallel.mesh import cli_group
 from novel_vqa_torch.train.eval_loop import run_full_split
 
 
@@ -53,7 +53,9 @@ class EvalConfig:
     result_name: str = "mscoco_val2014_lstm_novel_new_2"
     dump_scores_h5: str = ""  # write raw score vectors (late-fusion input)
     dump_scores_key: str = "Out"
-    # multi-GPU eval comes with the multi-GPU slice: 1 raises
+    # 1 = data-parallel over the process group (torchrun: one process per
+    # card; parallel/mesh.py): each rank forwards its slice of every batch,
+    # the encoder's can_skip spanning the global batch
     data_parallel: int = 0
     # 1 (default) = upload the test split once and gather batches on the
     # device; 0 = stream each batch host->device
@@ -63,14 +65,20 @@ class EvalConfig:
 
 def main(argv=None):
     opt = parse_config(EvalConfig, argv, description=__doc__)
-    if opt.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel 1: multi-GPU eval comes with the multi-GPU slice (ROADMAP A13)"
-        )
-    device = resolve_device(opt.device)
+    group = cli_group(opt.data_parallel, opt.device, opt.batch_size)
+    try:
+        return _run(opt, group)
+    finally:
+        group.close()
+
+
+def _run(opt: EvalConfig, group):
+    device = group.device
+    writer = group.is_writer
     # full fp32 in the projection/classifier products, as the CPU reference
     torch.backends.cuda.matmul.allow_tf32 = False
-    os.makedirs(opt.out_path, exist_ok=True)
+    if writer:
+        os.makedirs(opt.out_path, exist_ok=True)
 
     data = VQAData(
         opt.input_ques_h5,
@@ -100,13 +108,15 @@ def main(argv=None):
     need_scores = bool(opt.dump_scores_h5) or not opt.hbm_resident
     pred, mc_pred, scores = run_full_split(
         arch2, cfg, params, data, "test", opt.batch_size,
-        device=device,
         hbm_resident=bool(opt.hbm_resident),
+        group=group,
         want="scores" if need_scores else "predict",
     )
     qids = data.d["question_id_test"]
     if pred is None:
         pred = scores.argmax(axis=1) + 1  # 1-indexed answer ids
+    if not writer:  # only rank 0 writes the result files
+        return scores, qids
 
     ix_to_ans = data.ix_to_ans
     oe = [{"question_id": int(q), "answer": ix_to_ans[str(int(p))]} for q, p in zip(qids, pred)]

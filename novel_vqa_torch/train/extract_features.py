@@ -23,9 +23,11 @@ Same flags as the JAX CLI plus ``--device``.  ``--compute_dtype float32``
 from a center square crop.  ``--weights`` takes a converted ``.npz``
 (``train/import_caffe.py``, ``import_t7.py``, ``import_pth.py`` or the JAX
 package's); without one the net is randomly initialised from ``--seed``
-(throughput runs and smoke tests only: a warning is printed).  With more
-than one card it still runs on one (``--device``); sharded extraction
-comes with ROADMAP A13.
+(throughput runs and smoke tests only: a warning is printed).  Under
+``torchrun`` with more than one process (one per card) each batch is
+sharded: every rank decodes it, forwards its slice of the rows and the
+features are gathered in row order (``parallel/mesh.py``); the batch size
+must divide by the world size, and rank 0 writes the store.
 
     python -m novel_vqa_torch.train.extract_features --input_json data_prepro.json \\
         --image_root images/ --weights vgg16.npz --out_name data_img.h5
@@ -40,7 +42,7 @@ import os
 import sys
 import time
 from collections import deque
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -52,6 +54,7 @@ from novel_vqa_torch.core.h5 import update_h5, write_h5
 from novel_vqa_torch.data import images as I
 from novel_vqa_torch.models.vision import inception, vgg
 from novel_vqa_torch.models.vision.layers import bf16_storage_cast, fp32_exact
+from novel_vqa_torch.parallel.mesh import DPGroup, cli_group
 
 _NETS = {vgg.VGGConfig: vgg, inception.InceptionConfig: inception}
 
@@ -85,32 +88,41 @@ class ExtractConfig:
 
 class Extractor:
     """One net's forward: (N, H, W, 3) uint8 and an (N,) bool missing mask
-    on ``device`` -> (N, ndims) float32 features on ``device``.  The config
+    on ``device`` -> (N, ndims) float32 features on ``device``, each batch
+    sharded over ``group`` (by default the group of one process).  The config
     names the net (VGG or Inception); the params' dtype is the route; TF32
     is off for the forward (it touches only the float32 route's
     products)."""
 
-    def __init__(self, params, cfg, tap: str, prepro: Callable, ndims: int, device: torch.device):
+    def __init__(self, params, cfg, tap: str, prepro: Callable, ndims: int, device: torch.device,
+                 group: Optional[DPGroup] = None):
         self.params, self.cfg, self.tap, self.prepro = params, cfg, tap, prepro
         self.ndims, self.device = ndims, device
+        self.group = group if group is not None else DPGroup(0, 1, device)
         self.net = _NETS[type(cfg)]
 
     def __call__(self, u8: torch.Tensor, missing: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode(), fp32_exact():
+            # this rank's rows, gathered after
+            u8, missing = self.group.shard(u8), self.group.shard(missing)
             with record_function("extract.prepro"):
                 x = self.prepro(u8, missing)
-            return self.net.apply(self.params, self.cfg, x, self.tap).float()
+            out = self.net.apply(self.params, self.cfg, x, self.tap).float()
+            return self.group.gather(out)
 
 
 def build_model(
     name: str, weights: str, tap: str, seed: int, prepro_mode: str = "reference",
     image_size: int = 0, compute_dtype: str = "float32", device: str | torch.device = "cuda",
+    group=None,
 ):
     """Returns (forward, decode_size, center_crop, feature_dims); ``forward``
     is an ``Extractor``.  ``image_size`` overrides the net's input
     resolution (tests and dry runs only: the reference extractors are fixed
-    at 224 and 299)."""
-    device = resolve_device(device)
+    at 224 and 299).  ``group`` (a ``parallel.mesh.DPGroup``, by default
+    the group of one process on ``device``): each batch is sharded over it,
+    on its device."""
+    device = group.device if group is not None else resolve_device(device)
     if name == "inception":
         cfg = inception.InceptionConfig(image_size=image_size or 299)
         if cfg.image_size < inception.MIN_IMAGE_SIZE:
@@ -147,7 +159,7 @@ def build_model(
         params = net.init_params(cfg, torch.Generator().manual_seed(seed), device)
     if compute_dtype == "bfloat16":
         params = bf16_storage_cast(params)
-    forward = Extractor(params, cfg, tap, prepro, ndims, device)
+    forward = Extractor(params, cfg, tap, prepro, ndims, device, group)
     return forward, cfg.image_size, crop, ndims
 
 
@@ -245,20 +257,33 @@ def run_pipelined_extraction(
 
 def main(argv=None):
     opt = parse_config(ExtractConfig, argv, description=__doc__)
-    device = resolve_device(opt.device)
+    # batch-sharded under torchrun with more than one process
+    sharded = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    group = cli_group(sharded, opt.device, opt.batch_size)
+    try:
+        _extract(opt, group)
+    finally:
+        group.close()
+
+
+def _extract(opt: ExtractConfig, group):
+    device = group.device
+    writer = group.is_writer  # only rank 0 writes
     with open(opt.input_json) as f:
         meta = json.load(f)
     models = [build_model(opt.model, opt.weights, opt.tap, opt.seed, opt.prepro,
-                          opt.image_size, opt.compute_dtype, device)]
+                          opt.image_size, opt.compute_dtype, device, group)]
     if opt.model2:
         models.append(build_model(opt.model2, opt.weights2, opt.tap, opt.seed, opt.prepro,
-                                  opt.image_size, opt.compute_dtype, device))
-    print("decoder:", I.default_decoder())
+                                  opt.image_size, opt.compute_dtype, device, group))
+    if writer:
+        print("decoder:", I.default_decoder())
 
     # each split is written as it finishes (as the JAX CLI's h5py file
     # takes it): update_h5 rewrites the file, copying the finished splits
     # in chunks, so no more than one split's features are held
-    write_h5(opt.out_name, {})
+    if writer:
+        write_h5(opt.out_name, {})
     for split in ("train", "test", "val"):
         paths = [os.path.join(opt.image_root, p) for p in meta.get(f"unique_img_{split}", [])]
         if opt.limit >= 0:
@@ -269,11 +294,13 @@ def main(argv=None):
             models, paths, opt.batch_size, opt.decode_workers,
             fast_decode=bool(opt.fast_decode), depth=opt.pipeline_depth,
         )
-        print(f"processed {len(paths)} {split} images in {dt:.1f}s "
-              f"({len(paths)/dt:.1f} images/sec)")
-        update_h5(opt.out_name, {f"images_{split}": feats})
+        if writer:
+            print(f"processed {len(paths)} {split} images in {dt:.1f}s "
+                  f"({len(paths)/dt:.1f} images/sec)")
+            update_h5(opt.out_name, {f"images_{split}": feats})
         del feats
-    print("wrote", opt.out_name)
+    if writer:
+        print("wrote", opt.out_name)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,8 @@ a dataset of the same name and keeps every other one, as h5py's mode
 the old file in chunks, so an append costs a copy of the file on disk but
 never holds it in memory (the train split's scores are about 1 GB at VQA v1
 scale).  Same flags as the JAX CLI plus ``--device`` on ``compute``;
-``--data_parallel 1`` raises (ROADMAP A13).
+``--data_parallel 1`` under ``torchrun`` forwards each rank's slice of
+every batch and rank 0 writes (``parallel/mesh.py``).
 
     python -m novel_vqa_torch.train.lf_ensemble compute --model_path vgg/lstm.h5 \\
         --input_img_h5 data_img.h5 --input_ques_h5 data_prepro.h5 \\
@@ -42,19 +43,23 @@ import torch
 
 from novel_vqa_torch.core.checkpoint import arch1_from_flat, load_flat_h5
 from novel_vqa_torch.core.convert import arch1_params_from_numpy
-from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.core.h5 import H5Reader, update_h5
 from novel_vqa_torch.data.vqa import VQAData
 from novel_vqa_torch.models.vqa import arch1
+from novel_vqa_torch.parallel.mesh import cli_group
 from novel_vqa_torch.train.eval_loop import run_full_split
 
 
 def run_compute(args):
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel 1: multi-GPU compute comes with the multi-GPU slice (ROADMAP A13)"
-        )
-    device = resolve_device(args.device)
+    group = cli_group(args.data_parallel, args.device, args.batch_size)
+    try:
+        _compute(args, group)
+    finally:
+        group.close()
+
+
+def _compute(args, group):
+    device = group.device
     # full fp32 in the fusion/classifier products, as the CPU reference
     torch.backends.cuda.matmul.allow_tf32 = False
     splits = args.splits.split(",")
@@ -81,11 +86,13 @@ def run_compute(args):
     for split in splits:
         _, _, scores = run_full_split(
             arch1, cfg, params, data, split, args.batch_size,
-            device=device, hbm_resident=bool(args.hbm_resident), want="scores",
+            hbm_resident=bool(args.hbm_resident), group=group,
+            want="scores",
         )
         key = f"{args.prefix}Out{split.capitalize()}"
-        update_h5(args.out_h5, {key: scores})
-        print("wrote", key)
+        if group.is_writer:  # only rank 0 writes
+            update_h5(args.out_h5, {key: scores})
+            print("wrote", key)
 
 
 def run_eval(args):
@@ -156,7 +163,8 @@ def cli(argv=None):
     p.add_argument("--fusion", default="axb")
     p.add_argument(
         "--data_parallel", default=0, type=int,
-        help="multi-GPU compute comes with the multi-GPU slice: 1 raises",
+        help="1 = data-parallel over the process group (torchrun: one "
+        "process per card): each rank forwards its slice of every batch",
     )
     p.add_argument(
         "--hbm_resident", default=1, type=int,

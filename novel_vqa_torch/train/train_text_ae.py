@@ -21,7 +21,11 @@ with its keys, so either package loads the other's checkpoint), plus
 ``--device``.  ``--steps_per_dispatch k > 1`` keeps the train split on the
 device and runs k iterations per call without waiting for it, with the
 loader's exact windows (the head re-read on wrap).  Validation's NLL and
-greedy sampling step through the step kernel.  ``--profile_dir`` writes a
+greedy sampling step through the step kernel.  ``--data_parallel 1`` under
+``torchrun`` trains each rank on its slice of every batch (time-major, so
+axis 1): the encoder's can_skip and the NLL's count of scored tokens are
+reduced over the group, so the summed gradient is one device's; rank 0
+writes and prints.  ``--profile_dir`` writes a
 ``torch.profiler`` trace; ``--debug_nans 1`` runs under
 ``torch.autograd.detect_anomaly``.
 
@@ -43,13 +47,12 @@ import torch
 from novel_vqa_torch.core.checkpoint import load_npz, save_npz, unflatten_like
 from novel_vqa_torch.core.config import parse_config
 from novel_vqa_torch.core.convert import ae_params_from_numpy, ae_params_to_numpy
-from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.core.profiling import nan_guard, trace
-from novel_vqa_torch.core.tree import value_and_grad
 from novel_vqa_torch.data.corpus import CorpusLoader
 from novel_vqa_torch.eval.language_metrics import language_eval
 from novel_vqa_torch.models.seq import autoencoder as ae
 from novel_vqa_torch.ops import optim
+from novel_vqa_torch.parallel.mesh import DPGroup, cli_group, make_dp_train_step
 
 
 @dataclasses.dataclass
@@ -88,7 +91,9 @@ class AETrainConfig:
     # >1: the train split on the device and that many iterations per call
     # with the loader's exact windows; 1 = per-step host reads
     steps_per_dispatch: int = 1
-    # multi-GPU training comes with the multi-GPU slice: 1 raises
+    # 1 = data-parallel over the process group (torchrun: one process per
+    # card; parallel/mesh.py): each rank trains on its slice of every
+    # batch (time-major batches sharded on axis 1)
     data_parallel: int = 0
     # "bfloat16" mixed precision is not ported yet: it raises
     compute_dtype: str = "float32"
@@ -122,13 +127,31 @@ def make_tx(opt: AETrainConfig) -> optim.GradientTransformation:
     )
 
 
+def dp_loss_fn(params, cfg: ae.AEConfig, seq, imgs, generator, dp=None) -> torch.Tensor:
+    """``ae.loss_fn`` over a (seq, imgs) batch, the contract of
+    ``parallel.mesh.make_dp_train_step``: on a group the can_skip and the
+    count of scored tokens span the global batch, so the ranks' losses and
+    gradients sum to one device's."""
+    kwargs = {"imgs": imgs} if cfg.variant == "arch2" else {}
+    return ae.loss_fn(params, cfg, seq, generator, dp=dp, **kwargs)
+
+
+def make_dp_step(cfg: ae.AEConfig, tx, group):
+    """The DP train step: ``step(params, opt_state, generator, seq (L, B),
+    imgs (B, E))`` on the global batch, sharded on axis 1 (seq) and 0
+    (imgs), the gradients summed over the group."""
+    return make_dp_train_step(cfg, tx, group, dp_loss_fn, batch_specs=(1, 0), reduce="sum")
+
+
 def train_step(cfg: ae.AEConfig, tx, params, opt_state, seq, generator, imgs=None):
     """One forward/backward/update step: returns (params, opt_state, loss),
-    the loss a 0-d tensor left on the device."""
-    kwargs = {"imgs": imgs} if cfg.variant == "arch2" else {}
-    loss, grads = value_and_grad(ae.loss_fn)(params, cfg, seq, generator, **kwargs)
-    updates, opt_state = tx.update(grads, opt_state, params)
-    return optim.apply_updates(params, updates), opt_state, loss
+    the loss a 0-d tensor left on the device.  The DP step on the group of
+    one process; ``imgs`` (the arch2 variant's image slot) defaults to
+    zeros."""
+    if imgs is None:
+        imgs = torch.zeros(seq.shape[1], cfg.input_encoding_size, device=seq.device)
+    step = make_dp_step(cfg, tx, DPGroup(0, 1, seq.device))
+    return step(params, opt_state, generator, seq, imgs)
 
 
 def scan_windows(offset: torch.Tensor, n_rows: int, batch_size: int):
@@ -143,19 +166,22 @@ def scan_windows(offset: torch.Tensor, n_rows: int, batch_size: int):
 
 
 def train_steps_scan(cfg: ae.AEConfig, tx, params, opt_state, train_rows, offset,
-                     n_steps: int, batch_size: int, generator):
+                     n_steps: int, batch_size: int, generator, dp=None):
     """``n_steps`` iterations over the device-resident split ``train_rows``
     (N, L), the iterator ``offset`` a 0-d tensor carried on the device;
-    nothing waits for the card.  Returns (params, opt_state, offset,
-    losses (n_steps,))."""
-    imgs = None
-    if cfg.variant == "arch2":
-        imgs = train_rows.new_zeros(batch_size, cfg.input_encoding_size, dtype=torch.float32)
+    nothing waits for the card.  Every rank of the DP group ``dp`` (by
+    default the group of one process) reads the same global window and
+    trains on its slice of it.  Returns (params, opt_state, offset, losses
+    (n_steps,))."""
+    if dp is None:
+        dp = DPGroup(0, 1, train_rows.device)
+    imgs = train_rows.new_zeros(batch_size, cfg.input_encoding_size, dtype=torch.float32)
+    step = make_dp_step(cfg, tx, dp)
     losses = []
     for _ in range(n_steps):
         idx, offset = scan_windows(offset, train_rows.shape[0], batch_size)
         seq = train_rows[idx].t()  # (L, bs)
-        params, opt_state, loss = train_step(cfg, tx, params, opt_state, seq, generator, imgs)
+        params, opt_state, loss = step(params, opt_state, generator, seq, imgs)
         losses.append(loss)
     return params, opt_state, offset, torch.stack(losses)
 
@@ -199,16 +225,22 @@ def main(argv=None):
             "--compute_dtype bfloat16: autoencoder mixed precision is not ported "
             "yet (ROADMAP A9, compute_dtype); use float32"
         )
-    if opt.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel 1: multi-GPU training comes with the multi-GPU "
-            "slice (ROADMAP A13)"
-        )
-    device = resolve_device(opt.device)
+    group = cli_group(opt.data_parallel, opt.device, opt.batch_size)
+    try:
+        _train(opt, group)
+    finally:
+        group.close()
+
+
+def _train(opt: AETrainConfig, group):
+    device = group.device
+    writer = group.is_writer  # only rank 0 writes and prints
+    log = print if writer else (lambda *args: None)
     # full fp32 in the products, as the reference
     torch.backends.cuda.matmul.allow_tf32 = False
     ckpt_dir = opt.checkpoint_path or "."
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
 
     loader = CorpusLoader(opt.input_h5, opt.input_json)
     cfg = ae.AEConfig(
@@ -227,6 +259,10 @@ def main(argv=None):
         params = ae_params_from_numpy(unflatten_like(ae_params_to_numpy(params), flat), device)
     tx = make_tx(opt)
     opt_state = tx.init(params)
+    # every rank starts from rank 0's state
+    params = group.broadcast_tree(params)
+    opt_state = group.broadcast_tree(opt_state)
+    step = make_dp_step(cfg, tx, group)
     zero_imgs = torch.zeros(opt.batch_size, cfg.input_encoding_size, device=device)
 
     def eval_split(split: str):
@@ -247,7 +283,7 @@ def main(argv=None):
                 if opt.language_eval:
                     predictions += [{"prediction": p, "actual": a} for p, a in zip(preds, actuals)]
                 for p, a in list(zip(preds, actuals))[: max(0, opt.sample_print - printed)]:
-                    print(f"Prediction: {p} ||| Actual: {a}")
+                    log(f"Prediction: {p} ||| Actual: {a}")
                     printed += 1
             if bounds["wrapped"]:
                 break
@@ -256,7 +292,7 @@ def main(argv=None):
         lang_stats = None
         if opt.language_eval and predictions:
             lang_stats = language_eval(predictions)
-            print("language eval:", lang_stats)
+            log("language eval:", lang_stats)
         return loss_sum / max(1, loss_evals), lang_stats
 
     chunk = max(1, opt.steps_per_dispatch)
@@ -279,57 +315,58 @@ def main(argv=None):
             if chunk > 1:
                 params, opt_state, scan_offset, losses = train_steps_scan(
                     cfg, tx, params, opt_state, train_rows, scan_offset, chunk,
-                    opt.batch_size, generator,
+                    opt.batch_size, generator, dp=group,
                 )
                 loss = losses[-1]
                 it += chunk - 1  # the loop tail below adds the final 1
             else:
                 labels, _ = loader.get_batch("train", opt.batch_size)
-                params, opt_state, loss = train_step(
-                    cfg, tx, params, opt_state, torch.from_numpy(labels).to(device),
-                    generator, zero_imgs,
-                )
+                seq = torch.from_numpy(labels).to(device)
+                params, opt_state, loss = step(params, opt_state, generator, seq, zero_imgs)
 
             # with k iterations per call the modulo cadences fire when the
             # window [it-k+1, it] crosses the boundary
             if opt.losses_log_every > 0 and it % opt.losses_log_every < chunk:
                 f = float(loss)
                 loss_history[it] = f
-                print(f"iter {it}: {f:.6f}")
+                log(f"iter {it}: {f:.6f}")
                 # the loss-explosion watchdog, at the log cadence so that no
                 # other step waits for the card
                 if loss0 is None:
                     loss0 = f
                 if f > loss0 * 20:
-                    print("loss seems to be exploding, quitting.")
+                    log("loss seems to be exploding, quitting.")
                     break
 
             if it % opt.save_checkpoint_every < chunk or it >= opt.max_iters - 1:
                 val_loss, lang_stats = eval_split("val")
                 val_loss_history[it] = val_loss
-                print(f"validation loss: {val_loss}")
+                log(f"validation loss: {val_loss}")
 
                 ckpt_base = os.path.join(ckpt_dir, "model_id" + opt.id)
-                with open(ckpt_base + ".json", "w") as f:
-                    json.dump(
-                        {
-                            "opt": dataclasses.asdict(opt),
-                            "iter": it,
-                            "loss_history": loss_history,
-                            "val_loss_history": val_loss_history,
-                        },
-                        f,
-                    )
                 # CIDEr gating under language eval, else -val_loss
                 current_score = lang_stats["CIDEr"] if lang_stats is not None else -val_loss
-                if best_score is None or current_score > best_score:
+                best = best_score is None or current_score > best_score
+                if best:
                     best_score = current_score
-                    save_npz(
-                        ckpt_base + ".npz",
-                        ae_params_to_numpy(params),
-                        meta={"cfg": cfg._asdict(), "iter": it, "val_loss": val_loss},
-                    )
-                    print("wrote best checkpoint to " + ckpt_base + ".npz")
+                if writer:
+                    with open(ckpt_base + ".json", "w") as f:
+                        json.dump(
+                            {
+                                "opt": dataclasses.asdict(opt),
+                                "iter": it,
+                                "loss_history": loss_history,
+                                "val_loss_history": val_loss_history,
+                            },
+                            f,
+                        )
+                    if best:
+                        save_npz(
+                            ckpt_base + ".npz",
+                            ae_params_to_numpy(params),
+                            meta={"cfg": cfg._asdict(), "iter": it, "val_loss": val_loss},
+                        )
+                        print("wrote best checkpoint to " + ckpt_base + ".npz")
 
             it += 1
             if 0 < opt.max_iters <= it:

@@ -22,7 +22,10 @@ sampled index vector (``--steps_per_dispatch 1``, host sampling from the
 data's seeded generator) or nothing at all (``> 1``: on-device sampling,
 ``arch1.train_steps_scan``).  Losses stay on the device until log time.
 ``NOVEL_VQA_FUSED2=1`` routes the 2-layer encode through the seq2 kernel
-(``ops/lstm.py``).  ``--profile_dir`` writes a ``torch.profiler`` chrome
+(``ops/lstm.py``).  ``--data_parallel 1`` under ``torchrun`` trains each
+rank on its slice of every batch (both dispatch modes; NCCL on the cards,
+gloo with ``--device cpu``), the gradient mean all-reduced before the
+update; rank 0 writes every file.  ``--profile_dir`` writes a ``torch.profiler`` chrome
 trace (``trace.json``); ``--debug_nans 1`` runs under
 ``torch.autograd.detect_anomaly``.
 
@@ -30,6 +33,8 @@ trace (``trace.json``); ``--debug_nans 1`` runs under
         --input_img_h5 data_img.h5 --input_ques_h5 data_prepro.h5 \\
         --input_json data_prepro.json --checkpoint_path model/
     python -m novel_vqa_torch.train.train_vqa_arch1 ... --device cpu
+    torchrun --standalone --nproc_per_node=<cards> -m \\
+        novel_vqa_torch.train.train_vqa_arch1 ... --data_parallel 1
 """
 
 from __future__ import annotations
@@ -58,12 +63,13 @@ from novel_vqa_torch.core.convert import (
     arch1_params_to_numpy,
     lstm_params_from_numpy,
 )
-from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.core.logging import EMA, MetricsLogger
 from novel_vqa_torch.core.profiling import nan_guard, trace
 from novel_vqa_torch.core.tree import tree_map
 from novel_vqa_torch.data.vqa import VQAData
 from novel_vqa_torch.models.vqa import arch1
+from novel_vqa_torch.parallel.dp import make_vqa_dp_indexed_step, make_vqa_dp_steps_scan
+from novel_vqa_torch.parallel.mesh import cli_group
 
 
 @dataclasses.dataclass
@@ -105,7 +111,9 @@ class TrainConfig:
     # (arch1.train_steps_scan); 1 keeps host-side sampling (exact data.rng
     # stream)
     steps_per_dispatch: int = 1
-    # multi-GPU training comes with the multi-GPU slice: 1 raises
+    # 1 = data-parallel over the process group (torchrun: one process per
+    # card; parallel/mesh.py): each rank trains on its slice of every
+    # batch, the gradient mean all-reduced before the update
     data_parallel: int = 0
     profile_dir: str = ""  # torch.profiler chrome trace output dir ('' = off)
     debug_nans: int = 0  # 1 = torch.autograd.detect_anomaly
@@ -160,15 +168,20 @@ def main(argv=None):
             "--compute_dtype bfloat16: mixed-precision training is not ported "
             "yet (ROADMAP A5, compute_dtype); use float32"
         )
-    if opt.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel 1: multi-GPU training comes with the multi-GPU "
-            "slice (ROADMAP A13)"
-        )
-    device = resolve_device(opt.device)
+    group = cli_group(opt.data_parallel, opt.device, opt.batch_size)
+    try:
+        _train(opt, group)
+    finally:
+        group.close()
+
+
+def _train(opt: TrainConfig, group):
+    device = group.device
+    writer = group.is_writer  # only rank 0 writes files
     # full fp32 in the products, as the reference
     torch.backends.cuda.matmul.allow_tf32 = False
-    os.makedirs(os.path.join(opt.checkpoint_path, "save"), exist_ok=True)
+    if writer:
+        os.makedirs(os.path.join(opt.checkpoint_path, "save"), exist_ok=True)
 
     split_dims = (
         [int(x) for x in opt.img_norm_split.split(",")] if opt.img_norm_split else None
@@ -214,6 +227,9 @@ def main(argv=None):
         opt_state = tree_map(to_dev, restored["opt_state"])
         start_iter = int(meta.get("iter", 0))
         print(f"resumed from {opt.resume} at iteration {start_iter}")
+    # every rank starts from rank 0's state
+    params = group.broadcast_tree(params)
+    opt_state = group.broadcast_tree(opt_state)
 
     # ship the whole train split to the device once
     dev_data = {
@@ -221,7 +237,7 @@ def main(argv=None):
         for k, v in data.split_store("train").items()
     }
 
-    logger = MetricsLogger(os.path.join(opt.checkpoint_path, "save"))
+    logger = MetricsLogger(os.path.join(opt.checkpoint_path, "save")) if writer else None
     ema = EMA(0.95)
     ema_val = EMA(0.95)
     n_train = data.num_examples("train")
@@ -245,6 +261,8 @@ def main(argv=None):
         return total / max(1, n_batches)
 
     def save_ckpt(tag: str):
+        if not writer:
+            return
         host_params = arch1_params_to_numpy(params)
         save_flat_h5(
             os.path.join(opt.checkpoint_path, tag + ".h5"), arch1_to_flat(host_params)
@@ -262,14 +280,18 @@ def main(argv=None):
             )
 
     chunk = max(1, opt.steps_per_dispatch)
+    # DP: every rank samples the same global batch (the same seeds) and
+    # trains on its slice of it (parallel/dp.py)
+    step = make_vqa_dp_indexed_step(arch1.loss_fn, cfg, tx, group)
     it = start_iter
     with contextlib.ExitStack() as stack:
-        stack.enter_context(trace(opt.profile_dir, device))
+        stack.enter_context(trace(opt.profile_dir if writer else "", device))
         stack.enter_context(nan_guard(bool(opt.debug_nans)))
         while it < opt.max_iters:
             if (it + 1) % opt.save_checkpoint_every <= chunk - 1 or it == 0:
                 loss_val = validate()
-                logger.log_val(it + 1, opt.max_iters, loss_val, ema_val.value)
+                if writer:
+                    logger.log_val(it + 1, opt.max_iters, loss_val, ema_val.value)
                 save_ckpt(os.path.join("save", f"lstm_save_iter{it + 1}"))
             if chunk == 1:
                 # copied without waiting for the card (the host buffer is
@@ -277,17 +299,13 @@ def main(argv=None):
                 qinds = torch.from_numpy(
                     data.rng.integers(0, n_train, opt.batch_size)
                 ).to(device, non_blocking=True)
-                params, opt_state, loss = arch1.train_step_indexed(
-                    cfg, tx, params, opt_state, dev_data, qinds, generator
-                )
+                params, opt_state, loss = step(params, opt_state, dev_data, qinds, generator)
                 pending_losses.append(loss[None])
                 it += 1
             else:
                 n_steps = min(chunk, opt.max_iters - it)
-                params, opt_state, losses = arch1.train_steps_scan(
-                    cfg, tx, params, opt_state, dev_data, n_steps, opt.batch_size,
-                    generator,
-                )
+                scan = make_vqa_dp_steps_scan(arch1.loss_fn, cfg, tx, group, n_steps, opt.batch_size)
+                params, opt_state, losses = scan(params, opt_state, dev_data, generator)
                 pending_losses.append(losses)
                 it += n_steps
             # defer the device sync: fold the losses into the EMA only at log
@@ -296,11 +314,13 @@ def main(argv=None):
                 for f in torch.cat(pending_losses).tolist():
                     ema.update(f)
                 pending_losses.clear()
-                logger.log_train(it, opt.max_iters, ema.value)
+                if writer:
+                    logger.log_train(it, opt.max_iters, ema.value)
 
     save_ckpt("lstm")
-    logger.close()
-    print("done; final checkpoint at", os.path.join(opt.checkpoint_path, "lstm.h5"))
+    if writer:
+        logger.close()
+        print("done; final checkpoint at", os.path.join(opt.checkpoint_path, "lstm.h5"))
 
 
 if __name__ == "__main__":

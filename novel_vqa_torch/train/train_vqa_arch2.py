@@ -18,7 +18,10 @@ Same flags and output files as the JAX trainer, plus ``--device``:
 Questions stay LEFT-aligned (arch2 never right-aligns).  The train split
 lives on the device: each iteration ships the sampled index vector
 (``--steps_per_dispatch 1``) or nothing (``> 1``, on-device sampling, no
-host sync).  Validation steps through the step kernel.
+host sync).  Validation steps through the step kernel.  ``--data_parallel
+1`` under ``torchrun`` trains each rank on its slice of every batch, the
+encoder's can_skip all-reduced over the group so that it spans the global
+batch as on one device; rank 0 writes every file.
 
     python -m novel_vqa_torch.train.train_vqa_arch2 --input_img_h5 data_img.h5 \\
         --input_ques_h5 data_prepro.h5 --input_json data_prepro.json \\
@@ -45,11 +48,12 @@ from novel_vqa_torch.core.checkpoint import (
 )
 from novel_vqa_torch.core.config import parse_config
 from novel_vqa_torch.core.convert import arch2_params_from_numpy, arch2_params_to_numpy
-from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.core.logging import EMA, MetricsLogger
 from novel_vqa_torch.core.profiling import nan_guard, trace
 from novel_vqa_torch.data.vqa import VQAData
 from novel_vqa_torch.models.vqa import arch2
+from novel_vqa_torch.parallel.dp import make_vqa_dp_indexed_step, make_vqa_dp_steps_scan
+from novel_vqa_torch.parallel.mesh import cli_group
 
 
 @dataclasses.dataclass
@@ -83,7 +87,9 @@ class TrainConfig:
     # >1 runs that many iterations per call with on-device batch sampling
     # (arch2.train_steps_scan)
     steps_per_dispatch: int = 1
-    # multi-GPU training comes with the multi-GPU slice: 1 raises
+    # 1 = data-parallel over the process group (torchrun: one process per
+    # card; parallel/mesh.py): each rank trains on its slice of every
+    # batch, the encoder's can_skip spanning the global batch
     data_parallel: int = 0
     device: str = "cuda"
 
@@ -124,15 +130,20 @@ def build_params(opt: TrainConfig, cfg: arch2.Arch2Config, device):
 
 def main(argv=None):
     opt = parse_config(TrainConfig, argv, description=__doc__)
-    if opt.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel 1: multi-GPU training comes with the multi-GPU "
-            "slice (ROADMAP A13)"
-        )
-    device = resolve_device(opt.device)
+    group = cli_group(opt.data_parallel, opt.device, opt.batch_size)
+    try:
+        _train(opt, group)
+    finally:
+        group.close()
+
+
+def _train(opt: TrainConfig, group):
+    device = group.device
+    writer = group.is_writer  # only rank 0 writes files
     # full fp32 in the products, as the reference
     torch.backends.cuda.matmul.allow_tf32 = False
-    os.makedirs(os.path.join(opt.checkpoint_path, "save"), exist_ok=True)
+    if writer:
+        os.makedirs(os.path.join(opt.checkpoint_path, "save"), exist_ok=True)
 
     data = VQAData(
         opt.input_ques_h5,
@@ -162,13 +173,16 @@ def main(argv=None):
         grad_clamp=opt.grad_clamp,
     )
     opt_state = tx.init(params)
+    # every rank starts from rank 0's state
+    params = group.broadcast_tree(params)
+    opt_state = group.broadcast_tree(opt_state)
 
     # ship the whole train split to the device once
     dev_data = {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
         for k, v in data.split_store("train").items()
     }
-    logger = MetricsLogger(os.path.join(opt.checkpoint_path, "save"))
+    logger = MetricsLogger(os.path.join(opt.checkpoint_path, "save")) if writer else None
     ema, ema_val = EMA(0.95), EMA(0.95)
     n_train = data.num_examples("train")
     generator = torch.Generator(device=device).manual_seed(opt.seed)
@@ -191,6 +205,8 @@ def main(argv=None):
         return total / max(1, n_batches)
 
     def save_ckpt(tag: str):
+        if not writer:
+            return
         host = arch2_params_to_numpy(params)
         save_flat_h5(os.path.join(opt.checkpoint_path, tag + ".h5"), arch2_to_flat(host))
         save_npz(
@@ -200,29 +216,28 @@ def main(argv=None):
         )
 
     chunk = max(1, opt.steps_per_dispatch)
+    step = make_vqa_dp_indexed_step(arch2.loss_fn, cfg, tx, group)
     it = 0
     with contextlib.ExitStack() as stack:
-        stack.enter_context(trace(opt.profile_dir, device))
+        stack.enter_context(trace(opt.profile_dir if writer else "", device))
         stack.enter_context(nan_guard(bool(opt.debug_nans)))
         while it < opt.max_iters:
             if (it + 1) % opt.save_checkpoint_every <= chunk - 1 or it == 0:
                 loss_val = validate()
-                logger.log_val(it + 1, opt.max_iters, loss_val, ema_val.value)
+                if writer:
+                    logger.log_val(it + 1, opt.max_iters, loss_val, ema_val.value)
                 save_ckpt(os.path.join("save", f"lstm_save_iter{it + 1}"))
             if chunk == 1:
                 qinds = torch.from_numpy(
                     data.rng.integers(0, n_train, opt.batch_size)
                 ).to(device, non_blocking=True)
-                params, opt_state, loss = arch2.train_step_indexed(
-                    cfg, tx, params, opt_state, dev_data, qinds, generator
-                )
+                params, opt_state, loss = step(params, opt_state, dev_data, qinds, generator)
                 pending.append(loss[None])
                 it += 1
             else:
                 n_steps = min(chunk, opt.max_iters - it)
-                params, opt_state, losses = arch2.train_steps_scan(
-                    cfg, tx, params, opt_state, dev_data, n_steps, opt.batch_size, generator
-                )
+                scan = make_vqa_dp_steps_scan(arch2.loss_fn, cfg, tx, group, n_steps, opt.batch_size)
+                params, opt_state, losses = scan(params, opt_state, dev_data, generator)
                 pending.append(losses)
                 it += n_steps
             # the losses stay on the device until log time
@@ -230,11 +245,13 @@ def main(argv=None):
                 for f in torch.cat(pending).tolist():
                     ema.update(f)
                 pending.clear()
-                logger.log_train(it, opt.max_iters, ema.value)
+                if writer:
+                    logger.log_train(it, opt.max_iters, ema.value)
 
     save_ckpt("lstm")
-    logger.close()
-    print("done; final checkpoint at", os.path.join(opt.checkpoint_path, "lstm.h5"))
+    if writer:
+        logger.close()
+        print("done; final checkpoint at", os.path.join(opt.checkpoint_path, "lstm.h5"))
 
 
 if __name__ == "__main__":

@@ -32,8 +32,10 @@ step, with f32 master weights and f32 optimizer states.  The whole run has
 TF32 off (true fp32 products, as the reference).  Checkpoints are the JAX
 CLI's files (``model_id<id>.{npz,json}`` with ``ae/`` and ``cnn/`` keys,
 ``train_state<id>.npz``, HWIO convs), so either package reads the other's.
-Same flags as the JAX CLI plus ``--device``; ``--data_parallel 1`` and
-``--remat 1`` raise (ROADMAP A13, A11).
+Same flags as the JAX CLI plus ``--device``; ``--remat 1`` raises (ROADMAP
+A11).  ``--data_parallel 1`` under ``torchrun`` trains each rank on its
+slice of every batch, both nets' gradients summed over the group
+(``make_train_step``); rank 0 writes and prints.
 
     python -m novel_vqa_torch.train.train_weakpaired_ae --input_h5 data.h5 \\
         --input_json data.json --lstm_average_path lstm_mean.h5 --checkpoint_path wp/
@@ -54,7 +56,6 @@ import torch
 from novel_vqa_torch.core.checkpoint import load_npz, save_npz, unflatten_like
 from novel_vqa_torch.core.config import parse_config
 from novel_vqa_torch.core.convert import vision_params_from_numpy, vision_params_to_numpy
-from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.core.h5 import H5Reader
 from novel_vqa_torch.core.profiling import nan_guard, trace
 from novel_vqa_torch.core.tree import tree_leaves, value_and_grad
@@ -69,6 +70,7 @@ from novel_vqa_torch.models.vision import inception, vgg
 from novel_vqa_torch.models.vision.layers import bf16_storage_cast, fp32_exact
 from novel_vqa_torch.ops import optim
 from novel_vqa_torch.ops.l2norm import l2_normalize
+from novel_vqa_torch.parallel.mesh import DPGroup, cli_group
 
 
 @dataclasses.dataclass
@@ -119,7 +121,8 @@ class WPTrainConfig:
     debug_nans: int = 0  # 1 = torch.autograd.detect_anomaly
     image_size: int = 256  # stored image side; cropped to crop_size
     crop_size: int = 224
-    # multi-GPU training comes with the multi-GPU slice: 1 raises
+    # 1 = data-parallel over the process group (torchrun: one process per
+    # card; parallel/mesh.py): each rank trains on its slice of every batch
     data_parallel: int = 0
     compute_dtype: str = "float32"  # float32 | bfloat16 (trunk storage)
     # 1 = recompute the trunk's forward in the finetune backward: raises
@@ -199,7 +202,8 @@ def make_cnn_tx(opt: WPTrainConfig) -> optim.GradientTransformation:
 
 
 def make_train_step(cfg: ae.AEConfig, variant: str, crop_size: int, cnn_apply,
-                    ae_tx: optim.GradientTransformation, cnn_tx: optim.GradientTransformation):
+                    ae_tx: optim.GradientTransformation, cnn_tx: optim.GradientTransformation,
+                    dp=None):
     """The weak-paired train step: crop and normalize on the device -> CNN
     forward -> AE forward/backward -> the AE update and, with ``finetune``,
     the CNN's gradients and update (the reference's finetune gate is a
@@ -208,25 +212,37 @@ def make_train_step(cfg: ae.AEConfig, variant: str, crop_size: int, cnn_apply,
     Returns ``step(skip, finetune, ae_params, ae_opt_state, cnn_params,
     cnn_opt_state, images_u8, offsets, seq, sent_input, seq_input,
     generator) -> (ae_params, ae_opt_state, cnn_params, cnn_opt_state,
-    loss)``, the loss a 0-d tensor left on the device."""
+    loss)``, the loss a 0-d tensor left on the device.
 
-    def loss_from_feats(ae_params, feats, seq, sent_input, seq_input, skip, generator):
+    On the DP group ``dp`` (a ``parallel/mesh.DPGroup``; by default the
+    group of one process) the step takes the global batch and trains on
+    this rank's slice (rows of the images, offsets and sentence vectors,
+    axis 1 of the time-major sequences); the can_skip, the NLL's token
+    count and the dropout masks span the global batch, and both nets'
+    gradients are summed over the group before their updates."""
+
+    def loss_from_feats(ae_params, feats, seq, sent_input, seq_input, skip, generator, group):
         # the fused decoder + criterion: the (L+1, N, V+1) logprobs are never built
         if variant == "vqa_arch":
             return ae.apply_nll(ae_params, cfg, seq, imgs=feats, sent_input=sent_input,
-                                encoder_skip=skip, generator=generator, deterministic=False)[0]
+                                encoder_skip=skip, generator=generator, deterministic=False,
+                                dp=group)[0]
         return ae.apply_nll(ae_params, cfg, seq, imgs=feats, seq_input=seq_input,
-                            generator=generator, deterministic=False)[0]
+                            generator=generator, deterministic=False, dp=group)[0]
 
     def step(skip, finetune, ae_params, ae_opt_state, cnn_params, cnn_opt_state,
              images_u8, offsets, seq, sent_input, seq_input, generator):
+        group = dp if dp is not None else DPGroup(0, 1, images_u8.device)
+        images_u8, offsets, sent_input = (group.shard(a) for a in (images_u8, offsets, sent_input))
+        seq, seq_input = group.shard(seq, 1), group.shard(seq_input, 1)
         images = prepro_wp_images(images_u8, offsets, crop_size)
-        args = (seq, sent_input, seq_input, bool(skip), generator)
+        args = (seq, sent_input, seq_input, bool(skip), generator, group)
         if finetune:
             def full_loss(both):
                 return loss_from_feats(both["ae"], cnn_apply(both["cnn"], images), *args)
 
             loss, grads = value_and_grad(full_loss)({"ae": ae_params, "cnn": cnn_params})
+            loss, grads = group.reduce_tree((loss, grads), "sum")
             ae_grads = grads["ae"]
             cnn_updates, cnn_opt_state = cnn_tx.update(grads["cnn"], cnn_opt_state, cnn_params)
             cnn_params = optim.apply_updates(cnn_params, cnn_updates)
@@ -234,6 +250,7 @@ def make_train_step(cfg: ae.AEConfig, variant: str, crop_size: int, cnn_apply,
             with torch.no_grad():
                 feats = cnn_apply(cnn_params, images)
             loss, ae_grads = value_and_grad(loss_from_feats)(ae_params, feats, *args)
+            loss, ae_grads = group.reduce_tree((loss, ae_grads), "sum")
         ae_updates, ae_opt_state = ae_tx.update(ae_grads, ae_opt_state, ae_params)
         ae_params = optim.apply_updates(ae_params, ae_updates)
         return ae_params, ae_opt_state, cnn_params, cnn_opt_state, loss
@@ -281,16 +298,24 @@ def _norm(tree) -> float:
 
 def main(argv=None):
     opt = parse_config(WPTrainConfig, argv, description=__doc__)
-    if opt.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel 1: multi-GPU training comes with the multi-GPU slice (ROADMAP A13)")
     if opt.remat:
         raise NotImplementedError(
             "--remat 1: recomputing the trunk in the finetune backward is not ported yet "
             "(ROADMAP A11, remat); it changes no result")
-    device = resolve_device(opt.device)
+    group = cli_group(opt.data_parallel, opt.device, opt.batch_size)
+    try:
+        _train(opt, group)
+    finally:
+        group.close()
+
+
+def _train(opt: WPTrainConfig, group):
+    device = group.device
+    writer = group.is_writer  # only rank 0 writes and prints
+    log = print if writer else (lambda *args: None)
     ckpt_dir = opt.checkpoint_path or "."
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
     random.seed(opt.seed)  # math.randomseed(123) for the skip/zero coin flips
 
     loader = WeakPairedLoader(opt.input_h5, opt.input_json)
@@ -338,7 +363,11 @@ def main(argv=None):
         random.seed(opt.seed + start_iter)
         loader.iterators["train"] = int(meta.get("train_it_pos", 0))
 
-    train_step = make_train_step(cfg, opt.variant, opt.crop_size, cnn_apply, ae_tx, cnn_tx)
+    # every rank starts from rank 0's state
+    ae_params, cnn_params, ae_opt_state, cnn_opt_state = group.broadcast_tree(
+        (ae_params, cnn_params, ae_opt_state, cnn_opt_state))
+    train_step = make_train_step(cfg, opt.variant, opt.crop_size, cnn_apply, ae_tx, cnn_tx,
+                                 dp=group)
     np_rng = np.random.default_rng(opt.seed + start_iter)
     generator = torch.Generator(device=device).manual_seed(opt.seed + 1 + start_iter)
 
@@ -390,29 +419,32 @@ def main(argv=None):
                 f = float(loss)
                 loss_history[it] = f
                 # the update-magnitude diagnostics (004_train_arch1_...vgg.lua:372-376)
-                print(f"iter {it}: loss {f:.4f} | paramsNorm: {_norm(ae_params):.4f} | "
+                log(f"iter {it}: loss {f:.4f} | paramsNorm: {_norm(ae_params):.4f} | "
                       f"cnnParamsNorm: {_norm(cnn_params):.4f} (skip={skip} finetune={finetune})")
                 if loss0 is None:
                     loss0 = f
                 if f > loss0 * 20:
-                    print("loss seems to be exploding, quitting.")
+                    log("loss seems to be exploding, quitting.")
                     break
 
             if it % opt.save_checkpoint_every == 0 or it == opt.max_iters - 1:
                 val_loss = eval_split("val")
                 val_loss_history[it] = val_loss
-                print("validation loss:", val_loss)
+                log("validation loss:", val_loss)
                 base = os.path.join(ckpt_dir, "model_id" + opt.id)
-                with open(base + ".json", "w") as f:
-                    json.dump({"opt": dataclasses.asdict(opt), "iter": it, "loss_history": loss_history,
-                               "val_loss_history": val_loss_history}, f)
+                if writer:
+                    with open(base + ".json", "w") as f:
+                        json.dump({"opt": dataclasses.asdict(opt), "iter": it,
+                                   "loss_history": loss_history,
+                                   "val_loss_history": val_loss_history}, f)
                 score = -val_loss
-                if best_score is None or score > best_score:
-                    best_score = score
+                if (best_score is None or score > best_score) and writer:
                     save_npz(base + ".npz", vision_params_to_numpy({"ae": ae_params, "cnn": cnn_params}),
                              meta={"cfg": cfg._asdict(), "iter": it, "val_loss": val_loss})
                     print("wrote BEST checkpoint to " + base + ".npz")
-                if opt.save_train_state:
+                if best_score is None or score > best_score:
+                    best_score = score
+                if opt.save_train_state and writer:
                     state = {"ae": ae_params, "cnn": cnn_params, "ae_opt": ae_opt_state,
                              "cnn_opt": cnn_opt_state}
                     save_npz(os.path.join(ckpt_dir, "train_state" + opt.id + ".npz"),

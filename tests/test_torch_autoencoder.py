@@ -156,8 +156,8 @@ def test_batch_wide_skip_matches_jax(variant, lengths):
 def _identity_dropouts(monkeypatch):
     monkeypatch.setattr(jae, "dropout", lambda rng, x, rate, deterministic: x)
     monkeypatch.setattr(jfusion, "dropout", lambda rng, x, rate, deterministic: x)
-    monkeypatch.setattr(tae, "dropout", lambda x, rate, generator, deterministic: x)
-    monkeypatch.setattr(tfusion, "dropout", lambda x, rate, generator, deterministic: x)
+    monkeypatch.setattr(tae, "dropout", lambda x, rate, generator, deterministic, **kw: x)
+    monkeypatch.setattr(tfusion, "dropout", lambda x, rate, generator, deterministic, **kw: x)
 
 
 @pytest.mark.parametrize("variant,layers", CASES)

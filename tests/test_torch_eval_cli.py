@@ -3,6 +3,7 @@ synthetic split and the same flat ``lstm.h5`` and must write byte-identical
 OpenEnded and MultipleChoice result JSONs, for both store modes."""
 
 import json
+import os
 
 import h5py
 import jax
@@ -201,16 +202,26 @@ def test_eval_cli_refuses_missing_card_and_data_parallel(synthetic_dataset, tmp_
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             teval.main(argv)  # the default device is cuda
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        teval.main(argv + ["--device", "cpu", "--data_parallel", "1"])
+        with pytest.raises(RuntimeError, match="cuda"):
+            teval.main(argv + ["--data_parallel", "1"])  # DP never falls back to the CPU
+    # on the CPU, one process: the DP route writes the plain run's JSONs
+    plain, dp = str(tmp_path / "plain") + "/", str(tmp_path / "dp") + "/"
+    teval.main(_argv(d, plain, 1) + ["--device", "cpu"])
+    teval.main(_argv(d, dp, 1) + ["--device", "cpu", "--data_parallel", "1"])
+    for name in sorted(os.listdir(plain)):
+        with open(plain + name) as f1, open(dp + name) as f2:
+            assert f1.read() == f2.read(), name
 
 
 def test_eval_cli_refuses_data_parallel_before_reading_data(tmp_path):
-    """The refusal comes at the top of ``main``, naming ROADMAP A13: files
-    that do not exist are never opened."""
+    """``--data_parallel 1`` joins the group at the top of ``main``: without
+    a card the default device raises there, and files that do not exist
+    are never opened."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device would run")
     missing = str(tmp_path / "nothere")
     argv = ["--input_img_h5", missing, "--input_ques_h5", missing, "--input_json", missing,
             "--model_path", missing, "--out_path", str(tmp_path / "out") + "/", "--data_parallel", "1"]
-    with pytest.raises(NotImplementedError, match="multi-GPU.*A13"):
+    with pytest.raises(RuntimeError, match="cuda"):
         teval.main(argv)
     assert not (tmp_path / "out").exists()

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``novel_vqa_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the kernel modules
-import where there is neither nvcc nor a card (the build happens at the
-first launch)."""
+``chip_smoke.py`` imports JAX, the JAX package or the JAX bench
+(``bench.py``), and the kernel modules import where there is neither nvcc
+nor a card (the build happens at the first launch)."""
 
 import ast
 import os
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "novel_vqa_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "novel_vqa_tpu", "bench")
 
 
 def _sources():
@@ -57,6 +57,8 @@ def test_port_imports_without_nvcc_jax_or_card(tmp_path):
         "from novel_vqa_torch.pipeline import tokenize, pos, vqa_preprocessing, prepro_vqa\n"
         "from novel_vqa_torch.pipeline import prepro_book_corpus, novel_split, correction, quality_eval\n"
         "from novel_vqa_torch.data import images, native_images\n"
+        "import novel_vqa_torch.core.device_bench, novel_vqa_torch.parallel.mesh, novel_vqa_torch.parallel.dp\n"
+        "from novel_vqa_torch.utils import selfcheck, op_profile, validate_weights, rehearsal\n"
         "from novel_vqa_torch.kernels import build, lstm\n"
         "xs = torch.zeros(3, 2, 4); m = torch.ones(3, 2)\n"
         "lstm.lstm_seq(xs, m, torch.zeros(4, 8), torch.zeros(2, 8), torch.zeros(8))\n"

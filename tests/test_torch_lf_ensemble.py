@@ -154,8 +154,8 @@ def test_compute_refuses_data_parallel_and_a_missing_card(lf, tmp_path):
     missing = str(tmp_path / "nothere")
     argv = ["compute", "--input_img_h5", missing, "--input_ques_h5", missing, "--input_json", missing,
             "--model_path", missing]
-    with pytest.raises(NotImplementedError, match="A13"):
-        tlf.cli(argv + ["--data_parallel", "1", "--device", "cpu"])
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tlf.cli(argv + ["--data_parallel", "1"])  # joins on the card, before any read
         with pytest.raises(RuntimeError, match="cuda"):
             tlf.cli(_compute_argv(lf, "VGG", str(tmp_path / "x.h5")))  # the default device is cuda

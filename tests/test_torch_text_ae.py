@@ -283,8 +283,8 @@ def test_train_text_ae_refuses_unported_options(corpus, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ttrain.main(base)  # the default device is cuda
-    with pytest.raises(NotImplementedError, match="A13"):
-        ttrain.main(base + ["--device", "cpu", "--data_parallel", "1"])
+        with pytest.raises(RuntimeError, match="cuda"):
+            ttrain.main(base + ["--data_parallel", "1"])  # DP never falls back to the CPU
     with pytest.raises(NotImplementedError, match="A9"):
         ttrain.main(base + ["--device", "cpu", "--compute_dtype", "bfloat16"])
     with pytest.raises(ValueError, match="compute_dtype"):

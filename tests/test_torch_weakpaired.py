@@ -114,8 +114,8 @@ def test_crop_offsets_and_prepro_match_jax():
 def _identity_dropouts(monkeypatch):
     monkeypatch.setattr(jae, "dropout", lambda rng, x, rate, deterministic: x)
     monkeypatch.setattr(jfusion, "dropout", lambda rng, x, rate, deterministic: x)
-    monkeypatch.setattr(tae, "dropout", lambda x, rate, generator, deterministic: x)
-    monkeypatch.setattr(tfusion, "dropout", lambda x, rate, generator, deterministic: x)
+    monkeypatch.setattr(tae, "dropout", lambda x, rate, generator, deterministic, **kw: x)
+    monkeypatch.setattr(tfusion, "dropout", lambda x, rate, generator, deterministic, **kw: x)
 
 
 def _cheap_jax_inception(monkeypatch):
@@ -330,8 +330,16 @@ def test_cli_start_from_text_loads_a_port_text_ae(corpora, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [("--data_parallel", "A13"), ("--remat", "A11")])
 def test_cli_refuses_what_is_not_ported(corpora, tmp_path, flag, item):
+    args = _cli_args(corpora, "vgg16", "null", str(tmp_path), flag, "1")
+    if item == "A13":
+        # ported: DP joins the group on the card and never falls back to the CPU
+        if torch.cuda.is_available():
+            pytest.skip("this machine has a card: the run would go ahead")
+        with pytest.raises(RuntimeError, match="cuda"):
+            ttrain.main(args[: args.index("--device")] + args[args.index("--device") + 2:])
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ttrain.main(_cli_args(corpora, "vgg16", "null", str(tmp_path), flag, "1"))
+        ttrain.main(args)
 
 
 def test_cli_defaults_to_the_card(corpora, tmp_path):
