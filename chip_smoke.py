@@ -22,10 +22,13 @@ Phases, each printing one JSON line:
      interior steps that computed steps follow and their trailing steps;
      its rows report the cluster launch (CTAs per cluster, rows per
      cluster, CTAs, cudaOccupancyMaxActiveClusters) and the steps skipped
-     per tile.  The seq2 kernel (also a cluster kernel) runs the train
-     slice's multiplier at uniform right-aligned lengths and at the
-     slices' question lengths (both timed), and the gaps masks at
-     keep 0.7; its rows report the same launch and skip.  The step
+     per tile.  The seq2 kernel (also a cluster kernel, its products on
+     the bf16 tensor cores) runs the train slice's multiplier at uniform
+     right-aligned lengths and at the slices' question lengths (both
+     timed, with the device time per call from a CUDA graph and a model
+     of the weight bytes it streams from L2 beside the bound), and
+     the gaps masks at keep 0.7; its rows report the same launch and
+     skip.  The step
      kernel runs a stack step of the step route (In=200, then 512), the
      autoencoder's width (N=1000), the weak-paired validation's (N=16)
      and compute_mean_vectors' (N=256) shapes, and odd shapes on both of
@@ -34,8 +37,8 @@ Phases, each printing one JSON line:
      and, where timed, the device time per call from a CUDA graph of 20
      calls (``device_ms``) beside the time per call a Python caller sees
      (``kernel_ms``), the same for its plain version and the library
-     call; the build line reports its registers and spills (a spill
-     fails the run);
+     call; the build line reports its and the seq2 kernel's registers
+     and spills (a spill fails the run);
   4. autograd: the forward-only kernel wrappers refuse an input that
      requires grad under grad mode, and launch nothing;
   5. slice: arch1 test-split inference through the eval CLI at the
@@ -226,10 +229,11 @@ SCORE_TOL = 1e-4
 # which drifts as far.  The replay check (kernels/lstm2.replay_errors),
 # which no flip survives, does.
 SEQ2_FREE_ATOL = {"finals": 2e-3, "hs": 2.0**-8}
-# ... and those flips touch a few of the saved bf16 states (at most 2.1% at
-# the kernel check's shapes on an H100).  A kernel that rounds h toward zero
-# in its operands and its saved states alike passes the replay, which takes
-# those states as its operands, but differs on about half of them.
+# ... and those flips touch a few of the saved bf16 states (at most 3.7% at
+# the kernel check's shapes on an H100, whose tensor cores sum in k-chunks
+# of 16).  A kernel that rounds h toward zero in its operands and its saved
+# states alike passes the replay, which takes those states as its operands,
+# but differs on about half of them.
 SEQ2_HS_DIFFER_MAX = 0.1
 # FUSED2 route (bf16 storage) vs the default route (f32): loss relative
 # error, and each gradient's error relative to its largest entry (the JAX
@@ -617,11 +621,20 @@ def seq2_case(K2, N, In, H_, keep, mask_kind, timed, gen, dev):
             library = time_ms(lambda: lstm(xs))
         row.update(
             kernel_ms=time_ms(lambda: K2.lstm_seq2(*args)),
+            device_ms=graph_device_ms(lambda: K2.lstm_seq2(*args)),
             plain_ms=time_ms(lambda: K2.lstm_seq2_plain(*args)),
             library_ms=library,
             library="torch.nn.LSTM (cuDNN, 2 layers, bf16, unmasked, forward)",
         )
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, BF16_FLOPS)
+        # a model, not a measurement: the packed weight bytes the kernel
+        # would stream from L2 if every CTA read its fragments once per step
+        # its tile computes (both layers skip the same steps, one iteration
+        # apart), counted at the kernel's own padded layout
+        C, _, G, KX, KH = K2.lstm_seq2_dims(In, H_)
+        skipped = row["steps_skipped"]
+        computed = round(skipped["tiles"] * T * (1.0 - skipped["share_of_tile_steps"]))
+        row["l2_weight_bytes_model"] = (KX + 3 * KH) * 4 * 8 * G * C * 2 * computed
     return row
 
 
@@ -2841,10 +2854,13 @@ def main(argv=None) -> int:
     # the step kernel's variants (16- and 4-byte copies) spill nothing; an
     # empty report means the libraries were built before this run
     step_ptxas = ptxas_report(ptxas["lstm.cu"], "lstm_step_kernel")
-    if any(v.get("spill_bytes") != 0 for v in step_ptxas):
-        raise AssertionError(f"the step kernel spills: {step_ptxas}")
+    seq2_ptxas = ptxas_report(ptxas["lstm2.cu"], "lstm_seq2_kernel")
+    for name, report in (("step", step_ptxas), ("seq2", seq2_ptxas)):
+        if any(v.get("spill_bytes") != 0 for v in report):
+            raise AssertionError(f"the {name} kernel spills: {report}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
-          "step_kernel_ptxas": step_ptxas or "not built in this run"})
+          "step_kernel_ptxas": step_ptxas or "not built in this run",
+          "seq2_kernel_ptxas": seq2_ptxas or "not built in this run"})
 
     if opts.seq2_mutants:
         out = run_seq2_mutants(K2, dev)
@@ -2927,7 +2943,9 @@ def main(argv=None) -> int:
         entry("lstm_seq2", seq2_rows, train_out["runs"]["fused2_spd1"]["launches"]["lstm_seq2"],
               SEQ2_REPLACES, SEQ2_SOURCE),
     ]
+    kernels[2]["products"] = "mma.sync m16n8k16 bf16, f32 accumulate"
     kernels[2]["replay_err_ratio"] = max(max(r["replay_err_ratio"].values()) for r in seq2_rows)
+    kernels[2]["hs_bf16_differ_share"] = max(max(r["hs_bf16_differ_share"]) for r in seq2_rows)
     # the step kernel's launches on the later slices' paths: one arch2 eval
     # run (18 per batch), one AE training run's validations, one weak-paired
     # run's validations (33 per batch) and one compute_mean_vectors run

@@ -17,13 +17,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
 #include <map>
 #include <mutex>
 #include <set>
-#include <tuple>
 #include <utility>
 
 #include "cell.cuh"
+#include "cluster_plan.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -31,7 +32,7 @@ namespace {
 
 // Seq kernel: CTAs per cluster, batch rows per thread, the unroll of its k
 // loops, and threads per CTA at most (96 registers each).  The rows per
-// cluster are chosen at launch (seq_plan).
+// cluster are chosen at launch (seq_planner, cluster_plan.cuh).
 constexpr int kSeqCluster = 4;
 constexpr int kSeqRowsPerThread = 4;
 constexpr int kSeqUnroll = 8;
@@ -73,6 +74,57 @@ __device__ __forceinline__ void stage_rows(float* dst,
   }
 }
 
+// acc[q][r] = b[q * H + j] for q = 0..3 and all R rows.
+template <int R>
+__device__ __forceinline__ void init_bias(float (&acc)[4][R],
+                                          const float* __restrict__ b, int H,
+                                          int j) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float bq = load_weight(b + q * H + j);
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[q][r] = bq;
+  }
+}
+
+// acc[q][r] += sum_k a_s[k * S + r] * w[k * 4H + q * H + j], q = 0..3,
+// for R rows, in order of k, one fmaf each.  The rows' inputs are staged in
+// shared memory transposed with row stride S (a thread may take R of a
+// tile's S rows), so one float4 load broadcasts four rows of column k to
+// the whole warp; each thread reads its unit's four gate columns of weight
+// row k, and neighbouring threads read neighbouring columns, so the reads
+// coalesce.  The k loop is unrolled KU times: a thread has up to 4 * KU
+// weight loads in flight.
+template <int R, int KU>
+__device__ __forceinline__ void gate_products_strided(
+    float (&acc)[4][R], const float* a_s, int S, int K,
+    const float* __restrict__ w, int H, int j) {
+  static_assert(R % 4 == 0, "rows are read as float4");
+  const size_t ld = 4 * (size_t)H;
+  const float* wj = w + j;
+#pragma unroll (KU)
+  for (int k = 0; k < K; ++k) {
+    const float* wk = wj + (size_t)k * ld;
+    const float w0 = load_weight(wk);
+    const float w1 = load_weight(wk + H);
+    const float w2 = load_weight(wk + 2 * H);
+    const float w3 = load_weight(wk + 3 * H);
+    const float4* a4 = reinterpret_cast<const float4*>(a_s + k * S);
+#pragma unroll
+    for (int v = 0; v < R / 4; ++v) {
+      const float4 a = a4[v];
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[0][4 * v + e] = fmaf(av[e], w0, acc[0][4 * v + e]);
+        acc[1][4 * v + e] = fmaf(av[e], w1, acc[1][4 * v + e]);
+        acc[2][4 * v + e] = fmaf(av[e], w2, acc[2][4 * v + e]);
+        acc[3][4 * v + e] = fmaf(av[e], w3, acc[3][4 * v + e]);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Seq kernel.  Replaces novel_vqa_tpu/ops/pallas_lstm.py::_seq_kernel: one
 // masked LSTM layer over all T steps for a tile of batch rows, from a zero
@@ -100,7 +152,7 @@ __device__ __forceinline__ void stage_rows(float* dst,
 //
 // Occupancy: the launch takes the fewest rows per cluster R (a multiple of
 // RT) whose clusters the card holds at once, so the grid runs in one wave
-// on as many SMs as it can (seq_plan).  At N = 500 on an H100 that is
+// on as many SMs as it can (seq_planner).  At N = 500 on an H100 that is
 // 25 clusters of 20 rows, 100 CTAs: the card holds 30 clusters of 4, not
 // 33, because a cluster stays within one GPC, and 16-row tiles (32
 // clusters, 128 CTAs) take two waves and nearly twice the time.
@@ -506,108 +558,25 @@ auto seq_kernel() {
   return &lstm_seq_kernel<kSeqCluster, kSeqRowsPerThread, kSeqUnroll>;
 }
 
-// The seq kernel's launch at (N, In, H): one cluster of kSeqCluster CTAs
-// per tile of `rows` rows, and the clusters the card holds at once at that
-// launch (cudaOccupancyMaxActiveClusters).
-struct SeqPlan {
-  dim3 grid, block;
-  size_t smem;
-  int rows;
-  int max_clusters;
-};
-
-cudaLaunchConfig_t seq_config(const SeqPlan& plan, cudaStream_t stream,
-                              cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kSeqCluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = plan.grid;
-  config.blockDim = plan.block;
-  config.dynamicSmemBytes = plan.smem;
-  config.stream = stream;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  return config;
-}
-
-// The plans made so far, by (device, N, In, H), and per device the largest
-// dynamic shared memory the seq kernel has been allowed, which covers every
-// plan of that device: a launch after the first at a shape makes no query.
-std::mutex seq_plans_mutex;
-std::map<std::tuple<int, int, int, int>, SeqPlan> seq_plans;
-std::map<int, size_t> seq_smem_allowed;
-
-// Allows the seq kernel `smem` bytes of dynamic shared memory on `dev`; a
-// shape that needs more than the card offers fails here.
-cudaError_t allow_seq_smem(int dev, size_t smem) {
-  size_t& allowed = seq_smem_allowed[dev];
-  if (smem <= allowed) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      seq_kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) allowed = smem;
-  return err;
-}
-
-// R is the least multiple of kSeqRowsPerThread whose ceil(N / R) clusters
-// the card holds at once, within the threads a CTA may have (one per unit
-// and row group) and the shared memory it may use; past those limits, the
-// largest R that fits them.  Called with seq_plans_mutex held.
-cudaError_t make_seq_plan(int dev, int N, int In, int H, SeqPlan* plan) {
-  constexpr int RT = kSeqRowsPerThread;
-  int smem_optin = 0;
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, seq_kernel());
-  if (err != cudaSuccess) return err;
-  const int max_threads = fa.maxThreadsPerBlock / 32 * 32;
+// What a tile of the seq kernel costs a CTA at (In, H): the x_t, h
+// (double-buffered) and c tiles in shared memory, no cap on the rows but
+// the threads; one thread per unit and group of kSeqRowsPerThread rows.
+TileCost seq_cost(int In, int H) {
   const int units = (H + kSeqCluster - 1) / kSeqCluster;
-  const size_t row_bytes = (size_t)(In + 2 * H + units) * sizeof(float);
-  int r_max = (int)((size_t)smem_optin / row_bytes) / RT * RT;
-  const int groups_max = max_threads / units;
-  if (groups_max >= 1 && groups_max * RT < r_max) r_max = groups_max * RT;
-  if (r_max < RT) r_max = RT;
-
-  auto shape = [&](int R) {
-    const int items = units * (R / RT);
-    plan->rows = R;
-    plan->grid = dim3(((N + R - 1) / R) * kSeqCluster);
-    plan->block = dim3(items >= max_threads ? max_threads
-                                            : (items + 31) / 32 * 32);
-    plan->smem = row_bytes * R < kSeqMinSmem ? kSeqMinSmem : row_bytes * R;
-    cudaError_t e = allow_seq_smem(dev, plan->smem);
-    if (e != cudaSuccess) return e;
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t config = seq_config(*plan, nullptr, &attr);
-    return cudaOccupancyMaxActiveClusters(&plan->max_clusters, seq_kernel(),
-                                          &config);
-  };
-  // the clusters the card holds at once: one CTA per SM (kSeqMinSmem), so
-  // the same for every R
-  err = shape(RT);
-  if (err != cudaSuccess) return err;
-  int R = RT;
-  while (R < r_max && (N + R - 1) / R > plan->max_clusters) R += RT;
-  return shape(R);  // and the count again at the launch's own threads
+  TileCost c;
+  c.granularity = kSeqRowsPerThread;
+  c.rows_max = INT_MAX;
+  c.row_bytes = (size_t)(In + 2 * H + units) * sizeof(float);
+  c.min_smem = kSeqMinSmem;
+  return c;
 }
 
-cudaError_t seq_plan(int N, int In, int H, SeqPlan* plan) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(seq_plans_mutex);
-  const auto key = std::make_tuple(dev, N, In, H);
-  const auto it = seq_plans.find(key);
-  if (it != seq_plans.end()) {
-    *plan = it->second;
-    return cudaSuccess;
-  }
-  err = make_seq_plan(dev, N, In, H, plan);
-  if (err == cudaSuccess) seq_plans[key] = *plan;
-  return err;
+int seq_threads(int /*In*/, int H, int rows) {
+  return (H + kSeqCluster - 1) / kSeqCluster * (rows / kSeqRowsPerThread);
 }
+
+ClusterPlanner<decltype(seq_kernel())> seq_planner(seq_kernel(), kSeqCluster,
+                                                   seq_cost, seq_threads);
 
 // The step kernel's launch: the kernel (tile and copy width), grid, threads,
 // dynamic shared memory, and the tile's shape and the card's SMs to report.
@@ -691,12 +660,12 @@ int nvqa_lstm_seq_forward(const float* xs, const float* mask, const float* wx,
                           const float* wh, const float* b, float* c_out,
                           float* h_out, float* hs_out, int T, int N, int In,
                           int H, void* stream) {
-  SeqPlan plan;
-  cudaError_t err = seq_plan(N, In, H, &plan);
+  ClusterPlan plan;
+  cudaError_t err = seq_planner.plan(N, In, H, &plan);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t config =
-      seq_config(plan, (cudaStream_t)stream, &attr);
+      seq_planner.config(plan, (cudaStream_t)stream, &attr);
   err = cudaLaunchKernelEx(&config, seq_kernel(), xs, mask, wx, wh, b, c_out,
                            h_out, hs_out, T, N, In, H, plan.rows);
   if (err != cudaSuccess) return (int)err;
@@ -708,8 +677,8 @@ int nvqa_lstm_seq_forward(const float* xs, const float* mask, const float* wx,
 // card can hold at once (cudaOccupancyMaxActiveClusters), threads per CTA,
 // dynamic shared memory per CTA in bytes.
 int nvqa_lstm_seq_launch_info(int N, int In, int H, int* info) {
-  SeqPlan plan;
-  cudaError_t err = seq_plan(N, In, H, &plan);
+  ClusterPlan plan;
+  cudaError_t err = seq_planner.plan(N, In, H, &plan);
   if (err != cudaSuccess) return (int)err;
   const int out[6] = {kSeqCluster, plan.rows, (int)plan.grid.x,
                       plan.max_clusters, (int)plan.block.x, (int)plan.smem};

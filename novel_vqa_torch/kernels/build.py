@@ -36,8 +36,9 @@ ENTRY_POINTS = {
     "nvqa_lstm_seq_launch_info": [I] * 3 + [P],
     "nvqa_lstm_step_forward": [P] * 8 + [I] * 3 + [P],
     "nvqa_lstm_step_launch_info": [I] * 3 + [P],
-    "nvqa_lstm_seq2_forward": [P] * 15 + [I] * 4 + [P],
+    "nvqa_lstm_seq2_forward": [P] * 12 + [I] * 4 + [P],
     "nvqa_lstm_seq2_launch_info": [I] * 3 + [P],
+    "nvqa_lstm_seq2_dims": [I] * 2 + [P],
 }
 
 

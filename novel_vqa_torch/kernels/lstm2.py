@@ -10,8 +10,11 @@ like the seq kernel, a thread-block cluster of 4 CTAs per tile of rows that
 split the gate columns of both layers and exchange bf16(h1), the layer-2
 input and bf16(h2) through distributed shared memory, the layers run as the
 Pallas kernel's wavefront (layer-2 step t-1 beside layer-1 step t), steps no
-row of a tile takes skipped per layer; :func:`lstm_seq2_launch_info` reports
-its launch at a shape.
+row of a tile takes skipped per layer; its products run on the bf16 tensor
+cores (``mma.sync``, f32 accumulate) from weights the wrapper packs in
+fragment order (:func:`pack_weights`), so its f32 sums run in another order
+than the plain version's; :func:`lstm_seq2_launch_info` reports its launch
+at a shape.
 
 As in ``kernels/lstm.py``: the wrapper runs the plain version when the
 tensor it is given lies on the CPU, and on a CUDA tensor launches the
@@ -28,7 +31,9 @@ float32 and hs1, hs2 (T, N, H) bf16.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -109,6 +114,59 @@ def replay_errors(args, got: Seq2Out) -> Dict[str, float]:
     return out
 
 
+class Seq2Dims(NamedTuple):
+    """The layout of the seq2 kernel's packed weights at (In, H)."""
+
+    C: int  # CTAs per cluster
+    U: int  # units per CTA, ceil(H / C)
+    G: int  # groups of 8 units per CTA, one warp's
+    KX: int  # In padded to 16
+    KH: int  # H padded to 16
+
+
+@functools.lru_cache(maxsize=None)
+def lstm_seq2_dims(In: int, H: int) -> Seq2Dims:
+    """The kernel's own :class:`Seq2Dims` at (In, H)
+    (``nvqa_lstm_seq2_dims``), the layout :func:`pack_weights` writes for
+    it."""
+    lib = library(SOURCE)
+    dims = (ctypes.c_int * 5)()
+    raise_on(lib, lib.nvqa_lstm_seq2_dims(In, H, ctypes.addressof(dims)), "lstm_seq2 dims")
+    return Seq2Dims(*dims)
+
+
+def pack_weights(wx1, wh1, wx2, wh2, dims: Seq2Dims) -> torch.Tensor:
+    """Both layers' weights (wx1 (In, 4H), wh1, wx2, wh2 (H, 4H)) as the
+    seq2 kernel's mma A fragments at the layout ``dims``, in one tensor laid
+    out (CTA q, unit group, k-chunk of 16, m tile, lane, 8).  The k-chunks
+    of a group are layer 1's ``[Wx1; Wh1]`` and then layer 2's ``[Wx2;
+    Wh2]``, each matrix padded to a multiple of 16 rows of k (KX, KH); a
+    group holds 8 units of CTA q (q * U + u, u < U, padded to 8 G); the
+    padding is zeros.  M tile 0 holds gates i and f of the group's 8 units
+    (m rows 0-7, 8-15), m tile 1 o and g; lane l = 4 gr + tr holds A rows
+    gr and gr + 8 at k 2 tr, 2 tr + 1 and 2 tr + 8, 2 tr + 9 of the chunk,
+    in the order of the m16n8k16 A fragment's registers (element 4 kh + 2
+    mh + kl is m = gr + 8 mh, k = 2 tr + kl + 8 kh)."""
+    H = wh1.shape[0]
+    C, U, G, KX, KH = dims
+
+    def part(w, k_pad):  # (k_pad, 4, C, 8 G)
+        k = w.shape[0]
+        w = w.reshape(k, 4, H)
+        if C * U != H:
+            w = torch.nn.functional.pad(w, (0, C * U - H))
+        w = w.reshape(k, 4, C, U)
+        if 8 * G != U or k_pad != k:
+            w = torch.nn.functional.pad(w, (0, 8 * G - U, 0, 0, 0, 0, 0, k_pad - k))
+        return w
+
+    w = torch.cat([part(wx1, KX), part(wh1, KH), part(wx2, KH), part(wh2, KH)])
+    # (chunk, kh, tr, kl, m tile, mh, q, group, gr) -> (q, group, chunk, m
+    # tile, gr, tr, kh, mh, kl)
+    w = w.reshape(-1, 2, 4, 2, 2, 2, C, G, 8)
+    return w.permute(6, 7, 0, 4, 8, 2, 1, 5, 3).contiguous()
+
+
 def lstm_seq2(xs, mask, drop, wx1, wh1, b1, wx2, wh2, b2) -> Seq2Out:
     """Seq2 kernel wrapper: (c1, h1, c2, h2, hs1, hs2), as
     :func:`lstm_seq2_plain`."""
@@ -131,12 +189,13 @@ def lstm_seq2(xs, mask, drop, wx1, wh1, b1, wx2, wh2, b2) -> Seq2Out:
     ):
         check(name, t, shape, dev, dtype)
     lib = library(SOURCE)
+    w = pack_weights(wx1, wh1, wx2, wh2, lstm_seq2_dims(In, H))
     finals = [torch.empty(N, H, device=dev) for _ in range(4)]
     hs1 = torch.empty(T, N, H, device=dev, dtype=bf)
     hs2 = torch.empty(T, N, H, device=dev, dtype=bf)
     with torch.cuda.device(dev):
         err = lib.nvqa_lstm_seq2_forward(
-            *(t.data_ptr() for t in (xs, mask, drop, wx1, wh1, b1, wx2, wh2, b2)),
+            *(t.data_ptr() for t in (xs, mask, drop, w, b1, b2)),
             *(t.data_ptr() for t in finals), hs1.data_ptr(), hs2.data_ptr(),
             T, N, In, H, torch.cuda.current_stream().cuda_stream,
         )

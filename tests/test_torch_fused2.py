@@ -107,10 +107,21 @@ def test_seq2_plain_and_fused2_forward_match_pallas_interpret(N, T_, gaps, reque
         assert np.all(np.abs(a.float().numpy() - b) <= _bf16_ulp(b))
 
 
-def _seq2_variant(xs, mask, drop, wx1, wh1, b1, wx2, wh2, b2, omit=None, f64=False):
+def _chunk16_sum(b, *products):
+    """f32(b), then each (a, w) product's k-chunks of 16 in order, each
+    chunk's partial sum taken in f32 first: the order in which the seq2
+    kernel's m16n8k16 tensor-core products sum."""
+    acc = b.expand(products[0][0].shape[0], -1)
+    for a, w in products:
+        for k0 in range(0, a.shape[1], 16):
+            acc = acc + a[:, k0:k0 + 16] @ w[k0:k0 + 16]
+    return acc
+
+
+def _seq2_variant(xs, mask, drop, wx1, wh1, b1, wx2, wh2, b2, omit=None, f64=False, chunk16=False):
     """The seq2 forward with its sums in another order (``f64``: float64
-    products, rounded to f32 once per gate, as a stand-in for the CUDA
-    kernel's FMA order) or with one of its bf16 roundings left out
+    products, rounded to f32 once per gate; ``chunk16``: the tensor cores'
+    order, _chunk16_sum) or with one of its bf16 roundings left out
     (``omit``): 'h1' (bf16(h1) into Wh1), 'h2' (bf16(h2) into Wh2),
     'd_pre' (h1 rounded before the dropout multiply), 'd' (the layer-2
     input itself), 'all' (none of them)."""
@@ -121,17 +132,23 @@ def _seq2_variant(xs, mask, drop, wx1, wh1, b1, wx2, wh2, b2, omit=None, f64=Fal
     N, H_ = xs.shape[1], wh1.shape[0]
     c1 = h1 = c2 = h2 = torch.zeros(N, H_)
     hs1, hs2 = [], []
+
+    def gates_of(a, wa, h, wh, b):
+        if chunk16:
+            return _chunk16_sum(b, (a.to(acc), wa), (h.to(acc), wh))
+        return (a.to(acc) @ wa + h.to(acc) @ wh + b).to(f32)
+
     for t in range(xs.shape[0]):
         m = mask[t][:, None] > 0
         o1 = h1 if "h1" in keep else rnd(h1)
-        gates = (xs[t].to(acc) @ W[0] + o1.to(acc) @ W[1] + W[2]).to(f32)
+        gates = gates_of(xs[t], W[0], o1, W[1], W[2])
         c_new, h_new = K.cell(gates, c1)
         c1, h1 = torch.where(m, c_new, c1), torch.where(m, h_new, h1)
         hs1.append(h1.to(TBF))
         d = (h1 if "d_pre" in keep else rnd(h1)) * drop[t].to(f32)
         d = d if "d" in keep else rnd(d)
         o2 = h2 if "h2" in keep else rnd(h2)
-        gates = (d.to(acc) @ W[3] + o2.to(acc) @ W[4] + W[5]).to(f32)
+        gates = gates_of(d, W[3], o2, W[4], W[5])
         c_new, h_new = K.cell(gates, c2)
         c2, h2 = torch.where(m, c_new, c2), torch.where(m, h_new, h2)
         hs2.append(h2.to(TBF))
@@ -183,12 +200,18 @@ def test_seq2_replay_of_its_own_states_is_the_plain_run():
     (dict(omit="h2"), False),
     (dict(omit="d_pre"), False),
     (dict(omit="d"), False),
+    (dict(chunk16=True), True),
+    (dict(chunk16=True, omit="h1"), False),
+    (dict(chunk16=True, omit="h2"), False),
+    (dict(chunk16=True, omit="d_pre"), False),
+    (dict(chunk16=True, omit="d"), False),
 ])
 def test_seq2_replay_check_passes_other_sum_orders_and_rejects_missing_roundings(variant, passes):
     """The check chip_smoke.py holds the CUDA kernel to (errors as multiples
     of their tolerance, at most 1 passes): a forward that sums in another
-    order passes with room to spare, and one that leaves out any of the
-    kernel's bf16 roundings fails."""
+    order (float64, or the tensor cores' k-chunks of 16) passes with room
+    to spare, and one that leaves out any of the kernel's bf16 roundings
+    fails."""
     args = _replay_case()
     worst = max(K2.replay_errors(args, _seq2_variant(*args, **variant)).values())
     if passes:
