@@ -172,8 +172,27 @@ Phases, each printing one JSON line:
      arch1 trainer on both routes, ``eval_vqa_arch1`` and
      ``eval_vqa_arch2``, against the same runs in this process: each
      rank's launches equal the plain runs'; at world size 1 the
-     checkpoints and result JSONs are identical byte for byte.
-Phases 9-22 print the card's name and power limit on their lines.
+     checkpoints and result JSONs are identical byte for byte;
+ 23. mixed_precision: ``--compute_dtype bfloat16`` and remat at the
+     reference widths.  ``train_vqa_arch1 --compute_dtype bfloat16`` with
+     ``NOVEL_VQA_FUSED2`` off and on and ``train_text_ae --compute_dtype
+     bfloat16`` launch no kernel, validation included (the kernels take
+     f32, as the JAX package's dtype gates), with finite losses; the f32
+     ``eval_vqa_arch1`` of the bf16-trained ``lstm.h5`` launches the seq
+     kernel 2 per batch; on the same params bf16 against f32 (arch1's
+     scores within JAX's 5e-2, the AE's NLL within 3e-2) and the bf16
+     route on the card against the same route on the CPU (MP_CPU_SHARE);
+     f32 and bf16 training steps of arch1 and the AE timed (CUDA events,
+     device ms by kernel through ``core/device_bench.profile``, idle
+     share, peak memory); ``train_steps_scan`` of 10 without a host sync
+     in bf16 and under remat; remat: one arch1 step at dropout 0.5
+     against one without from the same generator seed (loss and
+     gradients, peak memory), its validation through the step kernel
+     (2 x 16 launches per batch, no seq launch, scores within SCORE_TOL of
+     the seq route's), ``train_weakpaired_ae --remat 1`` against
+     ``--remat 0`` through two finetune iterations (the same losses) and
+     the finetune step's time and peak memory both ways.
+Phases 9-23 print the card's name and power limit on their lines.
 Then a line with nvidia-smi's name and power limit, one JSON line listing
 every kernel, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without a card it exits non-zero at
@@ -310,6 +329,33 @@ PL_E, PL_F, PL_NUM_ANS, PL_IMAGE_SIZE = 512, F, O, EXTRACT_SIZE
 PL_WORDS, PL_ANSWERS, PL_SENTENCES, PL_CORPUS_VAL, PL_CORPUS_TEST = 1000, 1100, 3000, 500, 100
 PL_TRAIN_Q, PL_TEST_Q, PL_NUM_VAL, PL_TRAIN_IMG, PL_TEST_IMG = 1500, 600, 500, 60, 40
 PL_AE_ITERS, PL_VQA_ITERS, PL_VQA_EVERY = 4, 4, 2
+# the mixed_precision phase: the bf16 routes and remat at the reference
+# widths (arch1's, the ae phase's, the weakpaired phase's), iterations cut.
+# bf16 against f32: JAX's own bounds (tests/test_arch1.py:101,
+# tests/test_autoencoder.py:358); the bf16 route on the card against the
+# same route on the CPU: at most MP_CPU_SHARE of the bf16-f32 distance,
+# both the largest difference of one value.  cuBLAS sums the f32
+# accumulators in another order than the CPU, so a bf16 rounding of h may
+# flip, and each flip feeds every later step and every logit of its row:
+# the AE's 17 steps put the log-probs 0.26 of that distance apart on an
+# H100 (its first run of this phase); a route that quietly ran f32 would
+# sit at the whole distance.  bf16_divergence_by_step records the flips
+# step by step, from step 0's identical inputs (its gate products agree
+# within MP_GATE_REL of their largest, f32 sums in another order).  Remat against no remat: the same operations
+# recomputed on the same masks (MP_REMAT_TOL relative; the weak-paired
+# losses MP_WP_REMAT_RTOL, since cuDNN's weight gradients may sum in
+# another order between runs)
+MP_SIZES = {"train": 2000, "val": N_VAL, "test": N_TEST_TRAIN}
+MP_ITERS, MP_AE_ITERS, MP_WP_ITERS = 6, 4, 3
+MP_AE_SIZES = {"train": 4 * AE_BATCH, "val": AE_BATCH, "test": AE_BATCH}
+MP_WP_SIZES = {"train": MP_WP_ITERS * WP_BATCH, "val": WP_BATCH, "test": WP_BATCH}
+MP_CPU_ROWS = 64
+MP_ARCH1_TOL = dict(atol=5e-2, rtol=5e-2)
+MP_AE_RTOL = 3e-2
+MP_CPU_SHARE = 0.5
+MP_GATE_REL = 1e-5
+MP_REMAT_TOL = 1e-5
+MP_WP_REMAT_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -970,6 +1016,18 @@ def ref_cfg(**kw):
                              nhimage=F, common_embedding_size=C, num_output=O, **kw)
 
 
+def ref_batch(rs: np.random.RandomState, dev, n: int = BATCH):
+    """One reference-width arch1 batch: right-aligned questions of the
+    slices' lengths, L2-normalized non-negative features, answers."""
+    tokens = np.zeros((n, T), np.int32)
+    for i, k in enumerate(question_lengths(rs, n)):
+        tokens[i, T - k:] = rs.randint(1, V + 1, size=k)
+    image = np.maximum(rs.randn(n, F), 0).astype(np.float32)
+    image /= np.linalg.norm(image, axis=1, keepdims=True)
+    labels = rs.randint(1, O + 1, size=n).astype(np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (tokens, image, labels)]
+
+
 def run_route_agreement(K2, dev):
     """Loss and gradients of one reference-width batch at dropout 0."""
     from novel_vqa_torch.core.tree import tree_leaves, value_and_grad
@@ -977,14 +1035,7 @@ def run_route_agreement(K2, dev):
 
     cfg = ref_cfg(dropout=0.0)
     params = arch1.init_params(cfg, torch.Generator().manual_seed(SEED + 2), device=dev)
-    rs = np.random.RandomState(SEED + 2)
-    tokens = np.zeros((BATCH, T), np.int32)
-    for i, n in enumerate(question_lengths(rs, BATCH)):
-        tokens[i, T - n:] = rs.randint(1, V + 1, size=n)  # right-aligned
-    image = np.maximum(rs.randn(BATCH, F), 0).astype(np.float32)
-    image /= np.linalg.norm(image, axis=1, keepdims=True)
-    labels = rs.randint(1, O + 1, size=BATCH).astype(np.int32)
-    batch = [torch.from_numpy(a).to(dev) for a in (tokens, image, labels)]
+    batch = ref_batch(np.random.RandomState(SEED + 2), dev)
 
     res = {}
     for route in ("default", "fused2"):
@@ -2818,6 +2869,313 @@ def run_dp(smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 23: bf16 mixed precision and rematerialization
+# --------------------------------------------------------------------------
+
+def kernel_launches(K, K2) -> dict:
+    return {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches,
+            "lstm_seq2": K2.lstm_seq2.launches}
+
+
+def zero_launches(K, K2) -> None:
+    K.lstm_seq.launches = K.lstm_step.launches = K2.lstm_seq2.launches = 0
+
+
+def step_record(step, dev) -> dict:
+    """A training step's ms (CUDA events, median of 10), device ms and the
+    kernels that take most of it (torch.profiler through
+    ``core/device_bench.profile``), idle share and peak memory."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = time_ms(step, reps=10, warmup=1)
+    prof = profile(step, top=8)
+    return {"ms": ms, "device_ms": prof["device_ms_total"], "device_idle_share": 1 - prof["device_ms_total"] / ms,
+            "peak_memory_bytes": peak, "profile": prof}
+
+
+def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+def bf16_divergence_by_step(ae, params, cfg32, tokens, cpu) -> dict:
+    """Where the bf16 route on the card parts from the same route on the
+    CPU: the AE encoder's bf16 h, step by step, from the same embeddings
+    and params.  Step 0 starts from the zero state, so its inputs are
+    identical and only the f32 sum order of the first products differs
+    (checked within MP_GATE_REL); each later step also feeds back the h
+    values whose bf16 rounding flipped.  Per step: the share of h values
+    that differ, their largest difference, and the mean difference over
+    the mean bf16-f32 difference of the same step."""
+    from novel_vqa_torch.core.tree import tree_map
+    from novel_vqa_torch.ops.lstm import lstm_encode
+    from novel_vqa_torch.ops.precision import cast_compute, dot_f32
+
+    p16 = cast_compute(params, torch.bfloat16)
+    p16_cpu = tree_map(cpu, p16)
+    with torch.no_grad():
+        xs16 = ae._embed(p16, cfg32._replace(compute_dtype="bfloat16"), tokens, None, True)
+        xs32 = ae._embed(params, cfg32, tokens, None, True)
+        ones = torch.ones(tokens.shape, device=tokens.device)
+        hs = lambda layers, xs: lstm_encode(layers, xs, ones.to(xs.device), return_sequence=True)[1][1]
+        h16, h32 = hs(p16["encoder"], xs16).cpu().float(), hs(params["encoder"], xs32).cpu()
+        h16_cpu = hs(p16_cpu["encoder"], xs16.cpu()).float()
+        g_card = dot_f32(xs16[0], p16["encoder"][0]["wx"]).cpu()
+        g_cpu = dot_f32(xs16[0].cpu(), p16_cpu["encoder"][0]["wx"])
+    gate_rel = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+    if not gate_rel <= MP_GATE_REL:
+        raise AssertionError(f"bf16 step 0 gate products: card vs CPU {gate_rel} > {MP_GATE_REL} of max")
+    diff, d32 = (h16 - h16_cpu).abs(), (h16 - h32).abs()
+    dims = tuple(range(1, diff.dim()))
+    return {"step0_gate_products_max_rel": gate_rel, "rows": tokens.shape[1],
+            "h_flipped_share": (diff > 0).float().mean(dims).tolist(),
+            "h_max_abs": diff.amax(dims).tolist(),
+            "h_share_of_means": (diff.mean(dims) / d32.mean(dims)).tolist()}
+
+
+def run_mixed_precision(K, K2, dev, smi: str) -> dict:
+    """``--compute_dtype bfloat16`` and remat at the reference widths: the
+    bf16 arch1 CLI on both routes (no kernel launch in training and
+    validation) and the f32 eval of its checkpoint (the seq kernel); the
+    bf16 text-AE CLI (no step launch in validation); bf16 against f32 on
+    the same params and against the bf16 route on the CPU; f32 and bf16
+    training steps timed; remat against no remat (arch1's step at dropout
+    0.5, its validation through the step kernel, the weak-paired finetune
+    CLI) with the peaks both ways."""
+    from novel_vqa_torch.core.tree import tree_leaves, tree_map, value_and_grad
+    from novel_vqa_torch.data.corpus import CorpusLoader
+    from novel_vqa_torch.data.vqa import VQAData
+    from novel_vqa_torch.data.weakpaired import random_crop_offsets
+    from novel_vqa_torch.models.seq import autoencoder as ae
+    from novel_vqa_torch.models.vqa import arch1
+    from novel_vqa_torch.ops.losses import cross_entropy
+    from novel_vqa_torch.train import eval_vqa_arch1, train_text_ae, train_vqa_arch1
+    from novel_vqa_torch.train import train_weakpaired_ae as W
+
+    out = {"card": smi, "launches": {}, "tolerances": {
+        "arch1_bf16_vs_f32": MP_ARCH1_TOL, "ae_bf16_vs_f32_rtol": MP_AE_RTOL,
+        "card_vs_cpu_share_of_bf16_vs_f32": MP_CPU_SHARE, "remat_rel": MP_REMAT_TOL,
+        "wp_remat_loss_rtol": MP_WP_REMAT_RTOL}}
+    none = {"lstm_seq": 0, "lstm_step": 0, "lstm_seq2": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the bf16 arch1 CLI, both routes: JAX's dtype gates keep every
+        # kernel out of its training and validation
+        write_split(tmp, np.random.RandomState(SEED + 50), MP_SIZES)
+        runs = {}
+        for route in ("default", "fused2"):
+            ckpt = os.path.join(tmp, f"bf16_{route}")
+            with fused2_route(route == "fused2"):
+                zero_launches(K, K2)
+                t0 = time.perf_counter()
+                train_vqa_arch1.main(data_argv(tmp) + [
+                    "--checkpoint_path", ckpt + "/", "--max_iters", str(MP_ITERS), "--log_every", "3",
+                    "--compute_dtype", "bfloat16", "--device", dev.type])
+                torch.cuda.synchronize()
+                launches = kernel_launches(K, K2)
+            emas = loss_emas(ckpt)
+            if launches != none or len(emas) != MP_ITERS // 3 or not np.isfinite(emas).all():
+                raise AssertionError(f"bf16 arch1 {route}: launches {launches}, loss EMAs {emas}")
+            runs[route] = {"wall_s": time.perf_counter() - t0, "launches": launches, "loss_ema": emas}
+        out["arch1_cli_bf16"] = runs
+        zero_launches(K, K2)
+        res = os.path.join(tmp, "result")
+        eval_vqa_arch1.main(data_argv(tmp) + ["--model_path", os.path.join(tmp, "bf16_default", "lstm.h5"),
+                                              "--out_path", res, "--device", dev.type])
+        torch.cuda.synchronize()
+        launches = kernel_launches(K, K2)
+        expected = dict(none, lstm_seq=L * -(-MP_SIZES["test"] // BATCH))
+        for name in os.listdir(res):
+            with open(os.path.join(res, name)) as f:
+                if len(json.load(f)) != MP_SIZES["test"]:
+                    raise AssertionError(f"eval of the bf16 checkpoint: {name} has the wrong length")
+        if launches != expected:
+            raise AssertionError(f"eval of the bf16 checkpoint: launches {launches}, expected {expected}")
+        out["launches"]["bf16_eval"] = launches
+
+        # the bf16 text-AE CLI at the ae phase's width
+        h5, meta = write_corpus(os.path.join(tmp, "corpus"), np.random.RandomState(SEED + 51), AE_V,
+                                MP_AE_SIZES)
+        zero_launches(K, K2)
+        ae_ckpt = os.path.join(tmp, "ae_bf16")
+        train_text_ae.main(["--input_h5", h5, "--input_json", meta, "--checkpoint_path", ae_ckpt,
+                            "--rnn_size", str(AE_E), "--input_encoding_size", str(AE_E),
+                            "--batch_size", str(AE_BATCH), "--max_iters", str(MP_AE_ITERS),
+                            "--save_checkpoint_every", "2", "--losses_log_every", "1", "--sample_print", "1",
+                            "--compute_dtype", "bfloat16", "--device", dev.type])
+        torch.cuda.synchronize()
+        launches = kernel_launches(K, K2)
+        with open(os.path.join(ae_ckpt, "model_id.json")) as f:
+            log = json.load(f)
+        losses = list(log["loss_history"].values()) + list(log["val_loss_history"].values())
+        if launches != none or len(log["val_loss_history"]) != ae_evals(MP_AE_ITERS, 1, 2) \
+                or not np.isfinite(losses).all():
+            raise AssertionError(f"bf16 text AE: launches {launches}, losses {log['loss_history']}, "
+                                 f"{log['val_loss_history']}")
+        out["ae_cli_bf16"] = {"launches": launches, "loss_history": log["loss_history"],
+                              "val_loss_history": log["val_loss_history"]}
+        out["launches"]["bf16_train"] = {k: sum(r["launches"][k] for r in runs.values()) + launches[k]
+                                         for k in none}
+
+        # bf16 against f32 on the same params at full width, and the bf16
+        # route on the card against the same route on the CPU
+        cfg32 = ref_cfg(dropout=0.0)
+        cfg16 = cfg32._replace(compute_dtype="bfloat16")
+        params = arch1.init_params(cfg32, torch.Generator().manual_seed(SEED + 52), device=dev)
+        tokens, image, labels = ref_batch(np.random.RandomState(SEED + 52), dev)
+        zero_launches(K, K2)
+        with torch.no_grad():
+            s16 = arch1.apply(params, cfg16, tokens, image)
+            if kernel_launches(K, K2) != none:
+                raise AssertionError(f"bf16 arch1 forward launched {kernel_launches(K, K2)}")
+            s32 = arch1.apply(params, cfg32, tokens, image)
+            cpu = lambda t: t.cpu()
+            s16_cpu = arch1.apply(tree_map(cpu, params), cfg16, tokens.cpu(), image.cpu())
+        if not torch.allclose(s16, s32, **MP_ARCH1_TOL) or s16.dtype != torch.float32:
+            raise AssertionError(f"bf16 arch1 scores off the f32 ones by {float((s16 - s32).abs().max())}")
+        d32, dcpu = float((s16 - s32).abs().max()), float((s16.cpu() - s16_cpu).abs().max())
+        mean_share = float((s16.cpu() - s16_cpu).abs().mean() / (s16 - s32).abs().mean())
+        if not dcpu <= MP_CPU_SHARE * d32:
+            raise AssertionError(f"bf16 arch1 card vs CPU {dcpu} > {MP_CPU_SHARE} x bf16 vs f32 {d32}")
+        l16, l32 = float(cross_entropy(s16, labels)), float(cross_entropy(s32, labels))
+        out["arch1_bf16_vs_f32"] = {"scores_max_abs": d32, "loss_f32": l32, "loss_bf16": l16,
+                                    "card_vs_cpu_scores_max_abs": dcpu, "card_vs_cpu_share": dcpu / d32,
+                                    "card_vs_cpu_share_of_means": mean_share}
+
+        ae_cfg32 = ae.AEConfig(vocab_size=AE_V, input_encoding_size=AE_E, rnn_size=AE_E, seq_length=AE_T)
+        ae_cfg16 = ae_cfg32._replace(compute_dtype="bfloat16")
+        ae_params = ae.init_params(ae_cfg32, torch.Generator().manual_seed(SEED + 53), dev)
+        loader = CorpusLoader(h5, meta)
+        train_rows = torch.from_numpy(loader.split_rows("train")).to(dev)
+        loader.close()
+        seq = train_rows[:AE_BATCH].t().contiguous()
+        with torch.no_grad():
+            n16 = float(ae.apply_nll(ae_params, ae_cfg16, seq)[0])
+            n32 = float(ae.apply_nll(ae_params, ae_cfg32, seq)[0])
+            few = seq[:, :MP_CPU_ROWS].contiguous()
+            lp16 = ae.apply(ae_params, ae_cfg16, few)
+            lp32 = ae.apply(ae_params, ae_cfg32, few)
+            lp16_cpu = ae.apply(tree_map(cpu, ae_params), ae_cfg16, few.cpu())
+        if not abs(n16 - n32) <= MP_AE_RTOL * abs(n32):
+            raise AssertionError(f"bf16 AE loss {n16} vs f32 {n32} outside rtol {MP_AE_RTOL}")
+        d32, dcpu = float((lp16 - lp32).abs().max()), float((lp16.cpu() - lp16_cpu).abs().max())
+        mean_share = float((lp16.cpu() - lp16_cpu).abs().mean() / (lp16 - lp32).abs().mean())
+        if not dcpu <= MP_CPU_SHARE * d32:
+            raise AssertionError(f"bf16 AE card vs CPU {dcpu} > {MP_CPU_SHARE} x bf16 vs f32 {d32}")
+        out["ae_bf16_vs_f32"] = {"nll_f32": n32, "nll_bf16": n16, "nll_rel": abs(n16 - n32) / abs(n32),
+                                 "logprobs_max_abs": d32, "card_vs_cpu_logprobs_max_abs": dcpu,
+                                 "card_vs_cpu_share": dcpu / d32, "card_vs_cpu_share_of_means": mean_share,
+                                 "cpu_rows": MP_CPU_ROWS}
+        out["ae_bf16_card_vs_cpu_by_step"] = bf16_divergence_by_step(ae, ae_params, ae_cfg32, few, cpu)
+
+        # f32 and bf16 training steps in this call
+        data = VQAData(*(os.path.join(tmp, n) for n in ("data_prepro.h5", "data_img.h5", "data_prepro.json")))
+        store = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in data.split_store("train").items()}
+        tx = arch1.make_optimizer()
+        opt_state = tx.init(params)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 54)
+        qinds = torch.randint(0, MP_SIZES["train"], (BATCH,), generator=gen, device=dev)
+        ae_tx = train_text_ae.make_tx(train_text_ae.AETrainConfig())
+        ae_state = ae_tx.init(ae_params)
+        steps = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = ref_cfg(compute_dtype=dtype)
+            steps[f"arch1_{dtype}"] = step_record(
+                lambda: arch1.train_step_indexed(cfg, tx, params, opt_state, store, qinds, gen), dev)
+            acfg = ae_cfg32._replace(compute_dtype=dtype)
+            steps[f"ae_{dtype}"] = step_record(
+                lambda: train_text_ae.train_step(acfg, ae_tx, ae_params, ae_state, seq, gen), dev)
+        # the multi-step loops never wait for the card in bf16 or under remat
+        for name, cfg in (("bfloat16", ref_cfg(compute_dtype="bfloat16")), ("remat", ref_cfg(remat=True))):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, _, losses = arch1.train_steps_scan(cfg, tx, params, opt_state, store, 10, BATCH, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if not bool(torch.isfinite(losses).all()):
+                raise AssertionError(f"train_steps_scan {name}: losses {losses.tolist()}")
+            out[f"scan10_sync_free_{name}"] = True
+        out["steps"] = steps
+        out["step_unit"] = f"ms per train step (CUDA events, median of 10); arch1 batch {BATCH}, AE {AE_BATCH}"
+
+        # remat: one arch1 step at dropout 0.5 from one generator seed
+        grads, peaks = {}, {}
+        for remat in (False, True):
+            g = torch.Generator(device=dev).manual_seed(SEED + 55)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            grads[remat] = value_and_grad(arch1.loss_fn)(params, ref_cfg(remat=remat), tokens, image, labels, g)
+            torch.cuda.synchronize()
+            peaks[remat] = torch.cuda.max_memory_allocated(dev)
+        loss_rel = max_rel(grads[True][0], grads[False][0])
+        grad_rel = max(max_rel(a, b) for a, b in zip(tree_leaves(grads[True][1]), tree_leaves(grads[False][1])))
+        if not (loss_rel <= MP_REMAT_TOL and grad_rel <= MP_REMAT_TOL):
+            raise AssertionError(f"remat vs no remat: loss {loss_rel}, gradients {grad_rel}")
+        # its validation steps through the step kernel, 2 x 16 per batch
+        cfg_remat = ref_cfg(remat=True)
+        step_launches, n_batches, worst = 0, 0, 0.0
+        for b in data.iter_split("val", BATCH):
+            bt = [torch.from_numpy(a).to(dev) for a in (b.tokens, b.image, b.labels)]
+            zero_launches(K, K2)
+            _, got = arch1.eval_step(cfg_remat, params, *bt)
+            launches = kernel_launches(K, K2)
+            if launches != dict(none, lstm_step=L * T):
+                raise AssertionError(f"remat validation batch {n_batches}: launches {launches}")
+            step_launches += launches["lstm_step"]
+            n_batches += 1
+            _, ref = arch1.eval_step(ref_cfg(), params, *bt)
+            worst = max(worst, float((got - ref).abs().max()))
+        if not worst <= SCORE_TOL:
+            raise AssertionError(f"remat validation: scores off the seq route's by {worst}")
+        launches = dict(none, lstm_step=step_launches)
+        out["launches"]["remat_val"] = launches
+        out["remat_arch1"] = {"loss_rel": loss_rel, "grad_rel": grad_rel, "dropout": 0.5,
+                              "peak_memory_bytes": {"remat_0": peaks[False], "remat_1": peaks[True]},
+                              "val_batches": n_batches, "val_scores_vs_seq_route_max_abs": worst}
+
+        # remat of the weak-paired trunk: the finetune CLI both ways, and
+        # the finetune step's peak memory both ways
+        wh5, wmeta = write_corpus(os.path.join(tmp, "wp_corpus"), np.random.RandomState(SEED + 56), WP_V,
+                                  MP_WP_SIZES, image_side=WP_SIDE)
+        wp = {}
+        for remat in ("0", "1"):
+            wp[remat] = wp_run(dev, wh5, wmeta, os.path.join(tmp, f"wp_remat{remat}"), "null", "vgg16",
+                               MP_WP_ITERS, 1, ["--remat", remat])
+        pairs = [(wp["1"][k][i], wp["0"][k][i]) for k in ("loss_history", "val_loss_history") for i in wp["0"][k]]
+        wp_rel = max(abs(a - b) / abs(b) for a, b in pairs)
+        if not wp_rel <= MP_WP_REMAT_RTOL:
+            raise AssertionError(f"train_weakpaired_ae --remat 1 vs 0: losses {wp['1']} vs {wp['0']}")
+        opt = W.WPTrainConfig(variant="null", rnn_size=WP_E, input_encoding_size=WP_E, image_size=WP_SIDE,
+                              crop_size=WP_CROP, device=dev.type)
+        cnn_params, cnn_apply, _ = W.build_cnn(opt, True, torch.Generator().manual_seed(SEED + 57), dev)
+        wcfg = ae.AEConfig(vocab_size=WP_V, input_encoding_size=WP_E, rnn_size=WP_E, seq_length=T, variant="null")
+        w_ae = ae.init_params(wcfg, torch.Generator().manual_seed(SEED + 57), dev)
+        rs = np.random.RandomState(SEED + 57)
+        u8 = torch.from_numpy(rs.randint(0, 256, (WP_BATCH, WP_SIDE, WP_SIDE, 3), dtype=np.uint8)).to(dev)
+        offsets = torch.from_numpy(random_crop_offsets(np.random.default_rng(SEED), WP_BATCH, WP_SIDE,
+                                                       WP_CROP)).to(dev)
+        wseq = torch.from_numpy(rs.randint(1, WP_V + 1, (T, WP_BATCH)).astype(np.int32)).to(dev)
+        zeros = torch.zeros(WP_BATCH, 2 * WP_E, device=dev)
+        a_tx, c_tx = W.make_ae_tx(opt), W.make_cnn_tx(opt)
+        a_state, c_state = a_tx.init(w_ae), c_tx.init(cnn_params)
+        wp_steps = {}
+        for remat in (False, True):
+            step = W.make_train_step(wcfg, "null", WP_CROP, cnn_apply, a_tx, c_tx, remat=remat)
+            wp_steps[f"remat_{int(remat)}"] = step_record(
+                lambda: step(False, True, w_ae, a_state, cnn_params, c_state, u8, offsets, wseq, zeros, wseq,
+                             torch.Generator(device=dev).manual_seed(SEED)), dev)
+        out["remat_weakpaired"] = {"iters": MP_WP_ITERS, "finetune_cnn_after": 1, "loss_rel": wp_rel,
+                                   "runs": {k: {"loss_history": v["loss_history"],
+                                                "val_loss_history": v["val_loss_history"], "wall_s": v["wall_s"]}
+                                            for k, v in wp.items()},
+                                   "finetune_step": wp_steps}
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seq2-mutants", action="store_true",
@@ -2912,6 +3270,8 @@ def main(argv=None) -> int:
     emit({"phase": "rehearsal", **reh_out})
     dp_out = run_dp(smi)
     emit({"phase": "dp", **dp_out})
+    mp_out = run_mixed_precision(K, K2, dev, smi)
+    emit({"phase": "mixed_precision", **mp_out})
 
     def entry(name, rows, launches, replaces, source=SOURCE):
         timed = [r for r in rows if "kernel_ms" in r]
@@ -2968,6 +3328,14 @@ def main(argv=None) -> int:
         entry_["launches_dp"] = sum(run[name] for run in dp_out["launches"].values())
     kernels[0]["launches_rehearsal_eval"] = reh_out["launches"]["eval"]["lstm_seq"]
     kernels[2]["launches_op_profile"] = op_out["fused2"]["launches"]["lstm_seq2"]
+    # the mixed_precision phase: none in the bf16 trainers' runs (both
+    # arch1 routes and the text AE, validation included), the seq kernel's
+    # in the f32 eval of the bf16 checkpoint (2 per batch), the step
+    # kernel's in arch1's validation under remat (2 x 16 per batch)
+    for entry_, name in zip(kernels, ("lstm_seq", "lstm_step", "lstm_seq2")):
+        entry_["launches_bf16_train"] = mp_out["launches"]["bf16_train"][name]
+    kernels[0]["launches_bf16_eval"] = mp_out["launches"]["bf16_eval"]["lstm_seq"]
+    kernels[1]["launches_remat_val"] = mp_out["launches"]["remat_val"]["lstm_step"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})

@@ -31,6 +31,14 @@ plain cell with autograd.  Dropout masks come from one ``torch.Generator``
 drawn in a fixed order, so :func:`apply` and :func:`apply_nll` draw alike
 from the same seed.  The embedding dropout is a fixed 0.5 (not
 ``cfg.dropout``), as is the ``vqa_arch`` seed's.
+
+``compute_dtype="bfloat16"`` is the JAX package's mixed precision: the
+four entry points (:func:`encode`, :func:`apply`, :func:`apply_nll`,
+:func:`sample`) cast the params' f32 leaves and the float inputs to bf16
+(``_cast_compute``; the masters stay f32); every step then runs the plain
+bf16 cell (no kernel, ``ops/lstm.py``), the decoder's projection gives
+f32 logits (``ops/precision.dot_f32``), and the logsumexp and the NLL are
+f32.
 """
 
 from __future__ import annotations
@@ -44,7 +52,8 @@ from novel_vqa_torch.ops.dropout import dropout
 from novel_vqa_torch.ops.embedding import embedding_lookup
 from novel_vqa_torch.ops.fusion import axb_apply
 from novel_vqa_torch.ops.losses import sequence_targets
-from novel_vqa_torch.ops.lstm import lstm_stack_step
+from novel_vqa_torch.ops.lstm import lstm_stack_step, step_masks
+from novel_vqa_torch.ops.precision import cast_compute, compute_dtype, dot_f32
 
 State = Tuple[torch.Tensor, torch.Tensor]  # (c, h), each (layers, N, H)
 
@@ -58,8 +67,8 @@ class AEConfig(NamedTuple):
     dropout: float = 0.5  # -drop_prob_ae
     variant: str = "text_nostart"  # text_nostart | arch2 | vqa_arch | null
     nhimage: int = 0  # vqa_arch image feature width
-    # "bfloat16" mixed precision raises until its slice; float32 as the
-    # reference
+    # "bfloat16" = mixed precision (bf16 weights and activations, f32
+    # products' results and loss); float32 as the reference
     compute_dtype: str = "float32"
 
     @property
@@ -80,16 +89,14 @@ class AEConfig(NamedTuple):
         return self.variant in ("vqa_arch", "null")
 
 
-def _check_compute(cfg: AEConfig) -> None:
-    if cfg.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "AEConfig.compute_dtype='bfloat16': autoencoder mixed precision is "
-            "not ported yet (ROADMAP A9, compute_dtype); use float32"
-        )
-    if cfg.compute_dtype != "float32":
-        raise ValueError(
-            f"cfg.compute_dtype={cfg.compute_dtype!r}: must be 'float32' or 'bfloat16'"
-        )
+def _cast_compute(cfg: AEConfig, params, *arrays):
+    """``cfg.compute_dtype`` at an entry point: the params' f32 leaves and
+    the float inputs (None and token tensors as they are) in bf16; a no-op
+    for float32.  The cast's backward carries the gradients to the f32
+    masters."""
+    cdt = compute_dtype(cfg.compute_dtype)
+    cast = lambda a: a.to(cdt) if a is not None and a.is_floating_point() else a
+    return (cast_compute(params, cdt),) + tuple(cast(a) for a in arrays)
 
 
 def init_params(
@@ -151,9 +158,10 @@ def _scan_encoder(layers, xs, active, cfg: AEConfig, generator, deterministic: b
     T, N, _ = xs.shape
     c = h = xs.new_zeros(len(layers), N, cfg.rnn_size)
     for t in range(T):
+        masks = step_masks(len(layers), h[0], cfg.dropout, generator, deterministic, dp)
         c_new, h_new = lstm_stack_step(
-            layers, xs[t], (c, h), dropout_rate=cfg.dropout,
-            generator=generator, deterministic=deterministic, dp=dp,
+            layers, xs[t], (c, h), dropout_rate=cfg.dropout, masks=masks,
+            deterministic=deterministic,
         )
         c = torch.where(active[t], c_new, c)
         h = torch.where(active[t], h_new, h)
@@ -174,7 +182,7 @@ def encode(
     a DP group (``dp``, ``parallel/mesh.DPGroup``) ``seq`` is this rank's
     slice of the batch, and the can_skip and the dropout masks span the
     global batch, as they do on one device."""
-    _check_compute(cfg)
+    params, imgs = _cast_compute(cfg, params, imgs)
     L, N = seq.shape
     embs = _embed(params, cfg, seq, generator, deterministic, dp)  # (L, N, E)
     token_active = (seq != 0).any(dim=1)  # (L,) the batch-wide can_skip
@@ -200,14 +208,16 @@ def _decoder_steps(params, cfg: AEConfig, init_state: State, seq, generator, det
     dec = params["decoder"]
     state = init_state
     for t in range(xs.shape[0]):
+        masks = step_masks(len(dec["layers"]), state[1][0], cfg.dropout, generator,
+                           deterministic, dp)
         state = lstm_stack_step(
-            dec["layers"], xs[t], state, dropout_rate=cfg.dropout,
-            generator=generator, deterministic=deterministic, dp=dp,
+            dec["layers"], xs[t], state, dropout_rate=cfg.dropout, masks=masks,
+            deterministic=deterministic,
         )
         top = state[1][-1]
         if not deterministic:
             top = dropout(top, cfg.dropout, generator, False, dp=dp)
-        yield torch.matmul(top, dec["proj_w"]) + dec["proj_b"]
+        yield dot_f32(top, dec["proj_w"]) + dec["proj_b"]
 
 
 def decode_teacher_forced(params, cfg: AEConfig, init_state: State, seq, *,
@@ -282,7 +292,7 @@ def apply(params, cfg: AEConfig, seq: torch.Tensor, *, imgs=None, sent_input=Non
           seq_input=None, encoder_skip: bool = False, generator=None,
           deterministic: bool = True) -> torch.Tensor:
     """The whole AE -> (L+1, N, V+1) decoder logprobs."""
-    _check_compute(cfg)
+    params, imgs, sent_input = _cast_compute(cfg, params, imgs, sent_input)
     state = _decoder_start_state(params, cfg, seq, imgs, sent_input, seq_input,
                                  encoder_skip, generator, deterministic)
     return decode_teacher_forced(params, cfg, state, seq, generator=generator,
@@ -297,7 +307,7 @@ def apply_nll(params, cfg: AEConfig, seq: torch.Tensor, *, imgs=None, sent_input
     DP group (``dp``) ``seq`` is this rank's slice and both the can_skip and
     the count span the global batch: the ranks' losses sum to one
     device's."""
-    _check_compute(cfg)
+    params, imgs, sent_input = _cast_compute(cfg, params, imgs, sent_input)
     state = _decoder_start_state(params, cfg, seq, imgs, sent_input, seq_input,
                                  encoder_skip, generator, deterministic, dp)
     return decode_teacher_forced_nll(params, cfg, state, seq, generator=generator,
@@ -318,15 +328,15 @@ def sample(params, cfg: AEConfig, init_state: State, *, generator=None,
     categorical in distribution, not in bits).  Returns (tokens (L, N),
     the logprobs of the chosen tokens (L, N)).  Like the JAX package it
     computes L+1 steps, the last step's output unused."""
-    _check_compute(cfg)
     c, h = init_state
+    params, c, h = _cast_compute(cfg, params, c, h)
     N = c.shape[1]
     dec = params["decoder"]
 
     def step_logits(state, tokens):
         x = _embed(params, cfg, tokens, None, True)
         state = lstm_stack_step(dec["layers"], x, state, deterministic=True)
-        logits = torch.matmul(state[1][-1], dec["proj_w"]) + dec["proj_b"]
+        logits = dot_f32(state[1][-1], dec["proj_w"]) + dec["proj_b"]
         return state, torch.log_softmax(logits, dim=-1)
 
     state, logprobs = step_logits((c, h), _start(cfg, N, c.device))

@@ -14,7 +14,8 @@ One dtype policy for every layer (``raw_conv``, ``linear``):
     TF32 off, which ``fp32_exact`` turns off for the block it scopes;
   * bf16 convs give a bf16 result (cuDNN sums in f32 and rounds the output);
   * ``linear`` returns f32 even with bf16 weights (the JAX package's
-    ``preferred_element_type=float32``), and its bias adds in f32;
+    ``preferred_element_type=float32``, ``ops/precision.dot_f32``), and
+    its bias adds in f32;
   * batch norm's units stay f32 under ``bf16_storage_cast``, so a bf16
     conv's output leaves ``batch_norm`` as f32.
 """
@@ -26,6 +27,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from novel_vqa_torch.ops.precision import dot_f32
 
 
 @contextlib.contextmanager
@@ -121,24 +124,9 @@ def conv_bn(conv_p: Dict[str, torch.Tensor], bn_p: Dict[str, torch.Tensor], x: t
     return F.relu(y, inplace=True)
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w with an f32 result: exact products summed in f32.  For bf16
-    operands on the card cuBLAS writes f32 itself (``mm``'s ``out_dtype``);
-    on the CPU, which has no such kernel, and where autograd records the
-    product (``mm``'s ``out_dtype`` has no backward: the weak-paired
-    finetune of a bf16 trunk), the bf16 values are widened first: the same
-    math."""
-    if w.dtype == torch.float32:
-        return x @ w
-    recorded = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
-    if x.is_cuda and not recorded:
-        return torch.mm(x, w, out_dtype=torch.float32)
-    return x.float() @ w.float()
-
-
 def linear(params: Dict[str, torch.Tensor], x: torch.Tensor, relu: bool = False) -> torch.Tensor:
     w = params["w"]
-    y = _matmul_f32(x.to(w.dtype), w) + params["b"].float()
+    y = dot_f32(x.to(w.dtype), w) + params["b"].float()
     return F.relu(y, inplace=True) if relu else y
 
 

@@ -14,6 +14,14 @@ Port of ``novel_vqa_tpu.models.vqa.arch1`` after
 
 The dropout masks of training mode come from a ``torch.Generator`` on the
 batch's device (``generator=``) where the JAX package splits an rng key.
+
+``compute_dtype="bfloat16"`` is the JAX package's mixed precision: inside
+:func:`apply` the params' f32 leaves and the image are cast to bf16 (the
+f32 masters and the optimizer's states stay f32, the cast's backward
+carries the gradients to f32), the LSTM runs the plain bf16 cell
+(``ops/lstm.py``; no kernel), the products give f32
+(``ops/precision.dot_f32``), and the fusion's output, the scores and the
+loss are f32.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from novel_vqa_torch.ops.embedding import embedding_lookup
 from novel_vqa_torch.ops.fusion import askipb_apply, axb_apply
 from novel_vqa_torch.ops.losses import cross_entropy
 from novel_vqa_torch.ops.lstm import lstm_encode, lstm_layer_init, pack_state
+from novel_vqa_torch.ops.precision import cast_compute, compute_dtype, dot_f32
 from novel_vqa_torch.parallel.dp import make_vqa_dp_indexed_step, make_vqa_dp_steps_scan
 from novel_vqa_torch.parallel.mesh import DPGroup, make_dp_train_step
 
@@ -44,9 +53,10 @@ class Arch1Config(NamedTuple):
     num_output: int = 1000  # -num_output (:38)
     dropout: float = 0.5
     fusion: str = "axb"  # "axb" | "askipb" (wp variant)
-    remat: bool = False  # recompute the LSTM step in the backward: raises
-    # "bfloat16" mixed precision raises until its slice; float32 as the
-    # reference
+    remat: bool = False  # recompute each LSTM training step in the backward
+    # "bfloat16" = mixed precision: bf16 weights and activations in the
+    # forward, f32 products' results, f32 masters, optimizer states and
+    # loss.  float32 as the reference
     compute_dtype: str = "float32"
 
 
@@ -101,11 +111,9 @@ def apply(
     (``deterministic=False``) draws its dropout masks from ``generator``;
     on a DP group (``dp``, a ``parallel.mesh.DPGroup``) at the global
     batch's shape, this rank's rows taken (``ops/dropout.py``)."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"arch1 compute_dtype={cfg.compute_dtype!r}: only float32 is ported "
-            "(bfloat16 mixed precision is ROADMAP A5, compute_dtype)"
-        )
+    cdt = compute_dtype(cfg.compute_dtype)
+    params = cast_compute(params, cdt)
+    image = image.to(cdt)
     if cfg.fusion == "axb":
         fuse = axb_apply
     elif cfg.fusion == "askipb":
@@ -128,7 +136,8 @@ def apply(
         generator=generator, deterministic=deterministic, dp=dp,
     )
     fused = dropout(fused, cfg.dropout, generator, deterministic, dp=dp)
-    return torch.matmul(fused, params["classifier"]["w"]) + params["classifier"]["b"]
+    # f32 ``fused`` against a bf16 ``w`` is an f32 product, as JAX promotes
+    return dot_f32(fused, params["classifier"]["w"]) + params["classifier"]["b"]
 
 
 def loss_fn(params, cfg, tokens, image, labels, generator, dp=None) -> torch.Tensor:

@@ -24,6 +24,35 @@ from typing import Optional
 import torch
 
 
+def dropout_mask(
+    x: torch.Tensor,
+    rate: float,
+    generator: Optional[torch.Generator],
+    dp=None,
+    axis: int = 0,
+) -> torch.Tensor:
+    """The keep mask of :func:`dropout` for ``x`` (bool, ``x``'s shape),
+    drawn from ``generator`` as :func:`dropout` draws it.  A caller that
+    recomputes its forward (``ops/lstm.py`` under ``remat``) draws the
+    mask once, outside the recomputed region."""
+    if generator is None:
+        raise ValueError("dropout: training mode with rate > 0 needs a generator")
+    shape = list(x.shape)
+    if dp is not None:
+        shape[axis] *= dp.world_size
+    mask = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+    if dp is not None:
+        mask = dp.shard(mask, axis)
+    return mask
+
+
+def apply_mask(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """Survivors scaled by ``1/(1-rate)``, the rest zeroed; a Python scalar
+    keeps ``x``'s dtype (bf16 stays bf16, as in the JAX package)."""
+    keep = 1.0 - rate
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def dropout(
     x: torch.Tensor,
     rate: float,
@@ -34,13 +63,4 @@ def dropout(
 ) -> torch.Tensor:
     if deterministic or rate == 0.0:
         return x
-    if generator is None:
-        raise ValueError("dropout: training mode with rate > 0 needs a generator")
-    keep = 1.0 - rate
-    shape = list(x.shape)
-    if dp is not None:
-        shape[axis] *= dp.world_size
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
-    if dp is not None:
-        mask = dp.shard(mask, axis)
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    return apply_mask(x, dropout_mask(x, rate, generator, dp, axis), rate)

@@ -7,7 +7,8 @@ Port of ``novel_vqa_tpu.ops.fusion`` (002_train_vqa_arch1/misc/netdef.lua):
     A_B    (netdef.lua:27-35): concat(qc, ic)
 
 Weights are stored (in_features, out_features).  The two projections are
-plain ``torch.matmul`` calls, as the JAX package leaves them to XLA.  In
+plain products with an f32 result (``ops/precision.dot_f32``: bf16
+inputs give f32 ``qc``, ``ic``), as the JAX package leaves them to XLA.  In
 training mode (``deterministic=False`` with a generator) both projection
 inputs go through dropout.
 """
@@ -19,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from novel_vqa_torch.ops.dropout import dropout
+from novel_vqa_torch.ops.precision import dot_f32
 
 AxBParams = Dict[str, torch.Tensor]  # {"wq", "bq", "wi", "bi"}
 
@@ -35,8 +37,8 @@ def _projections(
     if generator is not None and not deterministic and rate > 0.0:
         q = dropout(q, rate, generator, deterministic=False, dp=dp)
         i = dropout(i, rate, generator, deterministic=False, dp=dp)
-    qc = torch.tanh(torch.matmul(q, params["wq"]) + params["bq"])
-    ic = torch.tanh(torch.matmul(i, params["wi"]) + params["bi"])
+    qc = torch.tanh(dot_f32(q, params["wq"]) + params["bq"])
+    ic = torch.tanh(dot_f32(i, params["wi"]) + params["bi"])
     return qc, ic
 
 

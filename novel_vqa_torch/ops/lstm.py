@@ -14,19 +14,28 @@ stay separate to keep the Torch flat-vector layout, and are summed where a
 kernel is called.
 
 Routing mirrors the JAX package (ops/lstm.py:367-467), with the card in
-the TPU's place:
+the TPU's place.  The kernels take float32 only: bf16 inputs (the mixed
+precision of ``compute_dtype="bfloat16"``) take the plain cell on every
+device, in eval too, as the JAX package keeps them on XLA (:97, :374).
+For float32 inputs:
   * a deterministic whole-sequence encode from a zero state (no
-    ``init_state``, no ``return_sequence``) runs one seq-kernel launch per
-    layer, layer k+1 fed layer k's per-step hidden states
-    (``pallas_lstm_encode``);
+    ``init_state``, no ``return_sequence``, no ``remat``) runs one
+    seq-kernel launch per layer, layer k+1 fed layer k's per-step hidden
+    states (``pallas_lstm_encode``);
   * under ``NOVEL_VQA_FUSED2=1``, a training encode of exactly two layers
-    with ``rnn_size % 128 == 0`` and float32 CUDA inputs runs the seq2
-    kernel once (``ops/lstm2.fused2_encode_train``; bf16 storage, so its
-    results differ from the default route's in the last bf16 bits);
+    with ``rnn_size % 128 == 0``, CUDA inputs and no ``remat`` runs the
+    seq2 kernel once (``ops/lstm2.fused2_encode_train``; bf16 storage, so
+    its results differ from the default route's in the last bf16 bits);
   * every other encode steps cell by cell through :func:`lstm_step`: the
     step kernel in eval, and in training the plain cell with autograd
     (the JAX package's XLA cell, ops/lstm.py:76-122), with inter-layer
     dropout.
+The bf16 cell is JAX's: gates in f32 from products with an f32 result
+(``ops/precision.dot_f32``) plus the bf16 biases, the activations and
+``c'`` in f32, then ``c'`` and ``h'`` rounded to the carry's dtype.
+``remat`` (``jax.checkpoint`` of the step) recomputes each training step
+in the backward (``torch.utils.checkpoint``); the step's dropout masks
+are drawn before it, so the recompute applies the same masks.
 The kernel wrappers (``kernels/``) launch the CUDA kernels on CUDA tensors
 and run their plain versions on CPU tensors; their outputs carry no
 ``grad_fn``, so a training forward reaches them only through
@@ -40,11 +49,13 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.kernels import lstm as kernels
-from novel_vqa_torch.ops.dropout import dropout
+from novel_vqa_torch.ops.dropout import apply_mask, dropout_mask
 from novel_vqa_torch.ops.lstm2 import fused2_encode_train
+from novel_vqa_torch.ops.precision import dot_f32
 
 LSTMLayerParams = Dict[str, torch.Tensor]  # {"wx", "bx", "wh", "bh"}
 
@@ -98,14 +109,16 @@ def lstm_step(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One LSTM step. x: (N, in); c, h: (N, H). Returns (c', h').
 
-    ``training=False``: the step kernel.  ``training=True``: the plain cell
-    with autograd, its two products in ``torch.matmul``."""
-    if training:
+    ``training=False`` with float32 ``x``: the step kernel.  Otherwise the
+    plain cell with autograd, its two products with an f32 result
+    (``torch.matmul`` for f32), ``c'`` and ``h'`` in the carry's dtype."""
+    if training or x.dtype != torch.float32:
         gates = (
-            torch.matmul(x, params["wx"]) + torch.matmul(h, params["wh"])
+            dot_f32(x, params["wx"]) + dot_f32(h, params["wh"])
             + params["bx"] + params["bh"]
         )
-        return kernels.cell(gates, c)
+        c_new, h_new = kernels.cell(gates, c)
+        return c_new.to(c.dtype), h_new.to(h.dtype)
     return kernels.lstm_step(
         x.contiguous(), h.contiguous(), c.contiguous(),
         params["wx"], params["wh"], params["bx"] + params["bh"],
@@ -118,21 +131,20 @@ def lstm_stack_step(
     state: Tuple[torch.Tensor, torch.Tensor],  # (c, h) each (L, N, H)
     *,
     dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
     deterministic: bool = True,
-    dp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-layer step: layer k+1 reads layer k's new h.  Inter-layer
     dropout on the input of layers > 1 only (misc/LSTM.lua:36-38: none on
-    the first layer's input and none on the recurrent path); on a DP group
-    (``dp``) its masks are the global batch's (``ops/dropout.py``)."""
+    the first layer's input and none on the recurrent path), with the
+    step's ``masks`` from :func:`step_masks`; ``None`` applies none."""
     c, h = state
     new_c: List[torch.Tensor] = []
     new_h: List[torch.Tensor] = []
     inp = x
     for layer_idx, layer in enumerate(params):
-        if layer_idx > 0:
-            inp = dropout(inp, dropout_rate, generator, deterministic, dp=dp)
+        if layer_idx > 0 and masks is not None:
+            inp = apply_mask(inp, masks[layer_idx], dropout_rate)
         c_l, h_l = lstm_step(
             layer, inp, c[layer_idx], h[layer_idx], training=not deterministic
         )
@@ -140,6 +152,20 @@ def lstm_stack_step(
         new_h.append(h_l)
         inp = h_l
     return torch.stack(new_c), torch.stack(new_h)
+
+
+def step_masks(
+    num_layers: int, h: torch.Tensor, dropout_rate: float, generator, deterministic: bool,
+    dp=None,
+) -> Optional[List[Optional[torch.Tensor]]]:
+    """The inter-layer dropout masks of one stack step (``h``: one layer's
+    (N, H) state), one per layer, the first unused; ``None`` where no
+    dropout applies (eval, or rate 0), which draws nothing.  On a DP group
+    (``dp``) they are the global batch's masks' slices
+    (``ops/dropout.py``)."""
+    if deterministic or dropout_rate == 0.0:
+        return None
+    return [None] + [dropout_mask(h, dropout_rate, generator, dp) for _ in range(num_layers - 1)]
 
 
 def pack_state(c: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -187,14 +213,12 @@ def lstm_encode(
     ``generator`` draws the dropout masks of training mode
     (``deterministic=False``), at the global batch's shape on a DP group
     (``dp``).
+    ``remat`` recomputes each training step in the backward instead of
+    keeping its activations; the results are the same.
     """
-    if remat:
-        raise NotImplementedError(
-            "lstm_encode(remat=True): recomputing the step in the backward is "
-            "not ported yet (ROADMAP A3, remat)"
-        )
-    whole_sequence = init_state is None and not return_sequence
-    if whole_sequence and deterministic:
+    whole_sequence = init_state is None and not return_sequence and not remat
+    kernel_dtype = xs.dtype == torch.float32
+    if whole_sequence and deterministic and kernel_dtype:
         mask = mask.contiguous()
         cs, hs_final = [], []
         inp = xs.contiguous()
@@ -211,7 +235,7 @@ def lstm_encode(
         and os.environ.get("NOVEL_VQA_FUSED2", "0") == "1"
         and len(params) == 2
         and params[0]["wh"].shape[0] % 128 == 0
-        and xs.dtype == torch.float32
+        and kernel_dtype
         and xs.is_cuda
     ):
         return fused2_encode_train(params, xs, mask, dropout_rate, generator, dp)
@@ -222,15 +246,24 @@ def lstm_encode(
         zeros = xs.new_zeros(len(params), batch, rnn_size)
         init_state = (zeros, zeros)
     c, h = init_state
+
+    def step(x_t, m_t, c, h, masks):
+        c_new, h_new = lstm_stack_step(
+            params, x_t, (c, h), dropout_rate=dropout_rate, masks=masks,
+            deterministic=deterministic,
+        )
+        m = m_t[None, :, None] > 0
+        return torch.where(m, c_new, c), torch.where(m, h_new, h)
+
     cs_seq, hs_seq = [], []
     for t in range(seq_len):
-        c_new, h_new = lstm_stack_step(
-            params, xs[t], (c, h), dropout_rate=dropout_rate,
-            generator=generator, deterministic=deterministic, dp=dp,
-        )
-        m = mask[t][None, :, None] > 0
-        c = torch.where(m, c_new, c)
-        h = torch.where(m, h_new, h)
+        masks = step_masks(len(params), h[0], dropout_rate, generator, deterministic, dp)
+        if remat and not deterministic:
+            # every draw is from ``generator``, made above: no RNG state to keep
+            c, h = checkpoint(step, xs[t], mask[t], c, h, masks, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            c, h = step(xs[t], mask[t], c, h, masks)
         if return_sequence:
             cs_seq.append(c)
             hs_seq.append(h)

@@ -21,7 +21,9 @@ with its keys, so either package loads the other's checkpoint), plus
 ``--device``.  ``--steps_per_dispatch k > 1`` keeps the train split on the
 device and runs k iterations per call without waiting for it, with the
 loader's exact windows (the head re-read on wrap).  Validation's NLL and
-greedy sampling step through the step kernel.  ``--data_parallel 1`` under
+greedy sampling step through the step kernel (under ``--compute_dtype
+bfloat16``, the JAX package's mixed precision, through the plain bf16
+cell: no kernel).  ``--data_parallel 1`` under
 ``torchrun`` trains each rank on its slice of every batch (time-major, so
 axis 1): the encoder's can_skip and the NLL's count of scored tokens are
 reduced over the group, so the summed gradient is one device's; rank 0
@@ -95,7 +97,9 @@ class AETrainConfig:
     # card; parallel/mesh.py): each rank trains on its slice of every
     # batch (time-major batches sharded on axis 1)
     data_parallel: int = 0
-    # "bfloat16" mixed precision is not ported yet: it raises
+    # "bfloat16" = bf16 weights/activations in the forward with f32 masters
+    # and f32 products' results (models/seq/autoencoder.AEConfig.compute_dtype);
+    # f32 as the reference
     compute_dtype: str = "float32"
     device: str = "cuda"
 
@@ -220,11 +224,6 @@ def main(argv=None):
     opt = parse_config(AETrainConfig, argv, description=__doc__)
     if opt.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"--compute_dtype {opt.compute_dtype!r}: must be 'float32' or 'bfloat16'")
-    if opt.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "--compute_dtype bfloat16: autoencoder mixed precision is not ported "
-            "yet (ROADMAP A9, compute_dtype); use float32"
-        )
     group = cli_group(opt.data_parallel, opt.device, opt.batch_size)
     try:
         _train(opt, group)

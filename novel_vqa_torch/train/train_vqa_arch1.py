@@ -22,7 +22,11 @@ sampled index vector (``--steps_per_dispatch 1``, host sampling from the
 data's seeded generator) or nothing at all (``> 1``: on-device sampling,
 ``arch1.train_steps_scan``).  Losses stay on the device until log time.
 ``NOVEL_VQA_FUSED2=1`` routes the 2-layer encode through the seq2 kernel
-(``ops/lstm.py``).  ``--data_parallel 1`` under ``torchrun`` trains each
+(``ops/lstm.py``).  ``--compute_dtype bfloat16`` trains in the JAX
+package's mixed precision (``models/vqa/arch1.py``): its training and
+validation run the plain bf16 cell and launch no kernel, and the
+checkpoints hold the f32 masters, which either package's eval CLI reads
+(its f32 eval runs the seq kernel).  ``--data_parallel 1`` under ``torchrun`` trains each
 rank on its slice of every batch (both dispatch modes; NCCL on the cards,
 gloo with ``--device cpu``), the gradient mean all-reduced before the
 update; rank 0 writes every file.  ``--profile_dir`` writes a ``torch.profiler`` chrome
@@ -117,7 +121,8 @@ class TrainConfig:
     data_parallel: int = 0
     profile_dir: str = ""  # torch.profiler chrome trace output dir ('' = off)
     debug_nans: int = 0  # 1 = torch.autograd.detect_anomaly
-    # "bfloat16" mixed precision is not ported yet: it raises
+    # "bfloat16" = mixed-precision training (bf16 weights/activations, f32
+    # products' results and master weights; no kernel); f32 as the reference
     compute_dtype: str = "float32"
     device: str = "cuda"
 
@@ -163,11 +168,6 @@ def main(argv=None):
     opt = parse_config(TrainConfig, argv, description=__doc__)
     if opt.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown --compute_dtype {opt.compute_dtype}")
-    if opt.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "--compute_dtype bfloat16: mixed-precision training is not ported "
-            "yet (ROADMAP A5, compute_dtype); use float32"
-        )
     group = cli_group(opt.data_parallel, opt.device, opt.batch_size)
     try:
         _train(opt, group)

@@ -32,8 +32,10 @@ step, with f32 master weights and f32 optimizer states.  The whole run has
 TF32 off (true fp32 products, as the reference).  Checkpoints are the JAX
 CLI's files (``model_id<id>.{npz,json}`` with ``ae/`` and ``cnn/`` keys,
 ``train_state<id>.npz``, HWIO convs), so either package reads the other's.
-Same flags as the JAX CLI plus ``--device``; ``--remat 1`` raises (ROADMAP
-A11).  ``--data_parallel 1`` under ``torchrun`` trains each rank on its
+Same flags as the JAX CLI plus ``--device``; ``--remat 1`` recomputes the
+trunk's forward in the finetune backward instead of keeping its
+activations (``jax.checkpoint(cnn_apply)``; the same results, less
+memory).  ``--data_parallel 1`` under ``torchrun`` trains each rank on its
 slice of every batch, both nets' gradients summed over the group
 (``make_train_step``); rank 0 writes and prints.
 
@@ -52,6 +54,7 @@ import random
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from novel_vqa_torch.core.checkpoint import load_npz, save_npz, unflatten_like
 from novel_vqa_torch.core.config import parse_config
@@ -125,8 +128,9 @@ class WPTrainConfig:
     # card; parallel/mesh.py): each rank trains on its slice of every batch
     data_parallel: int = 0
     compute_dtype: str = "float32"  # float32 | bfloat16 (trunk storage)
-    # 1 = recompute the trunk's forward in the finetune backward: raises
-    # until an H100 measurement calls for it
+    # 1 = recompute the trunk's forward in the finetune backward
+    # (torch.utils.checkpoint): a second trunk forward for not keeping its
+    # activations
     remat: int = 0
     device: str = "cuda"
 
@@ -203,7 +207,7 @@ def make_cnn_tx(opt: WPTrainConfig) -> optim.GradientTransformation:
 
 def make_train_step(cfg: ae.AEConfig, variant: str, crop_size: int, cnn_apply,
                     ae_tx: optim.GradientTransformation, cnn_tx: optim.GradientTransformation,
-                    dp=None):
+                    dp=None, remat: bool = False):
     """The weak-paired train step: crop and normalize on the device -> CNN
     forward -> AE forward/backward -> the AE update and, with ``finetune``,
     the CNN's gradients and update (the reference's finetune gate is a
@@ -219,7 +223,9 @@ def make_train_step(cfg: ae.AEConfig, variant: str, crop_size: int, cnn_apply,
     this rank's slice (rows of the images, offsets and sentence vectors,
     axis 1 of the time-major sequences); the can_skip, the NLL's token
     count and the dropout masks span the global batch, and both nets'
-    gradients are summed over the group before their updates."""
+    gradients are summed over the group before their updates.  ``remat``
+    recomputes the trunk's forward in the finetune backward (the trunk
+    draws nothing at random, so the recompute is the forward)."""
 
     def loss_from_feats(ae_params, feats, seq, sent_input, seq_input, skip, generator, group):
         # the fused decoder + criterion: the (L+1, N, V+1) logprobs are never built
@@ -239,7 +245,12 @@ def make_train_step(cfg: ae.AEConfig, variant: str, crop_size: int, cnn_apply,
         args = (seq, sent_input, seq_input, bool(skip), generator, group)
         if finetune:
             def full_loss(both):
-                return loss_from_feats(both["ae"], cnn_apply(both["cnn"], images), *args)
+                if remat:
+                    feats = checkpoint(cnn_apply, both["cnn"], images, use_reentrant=False,
+                                       preserve_rng_state=False)
+                else:
+                    feats = cnn_apply(both["cnn"], images)
+                return loss_from_feats(both["ae"], feats, *args)
 
             loss, grads = value_and_grad(full_loss)({"ae": ae_params, "cnn": cnn_params})
             loss, grads = group.reduce_tree((loss, grads), "sum")
@@ -298,10 +309,6 @@ def _norm(tree) -> float:
 
 def main(argv=None):
     opt = parse_config(WPTrainConfig, argv, description=__doc__)
-    if opt.remat:
-        raise NotImplementedError(
-            "--remat 1: recomputing the trunk in the finetune backward is not ported yet "
-            "(ROADMAP A11, remat); it changes no result")
     group = cli_group(opt.data_parallel, opt.device, opt.batch_size)
     try:
         _train(opt, group)
@@ -367,7 +374,7 @@ def _train(opt: WPTrainConfig, group):
     ae_params, cnn_params, ae_opt_state, cnn_opt_state = group.broadcast_tree(
         (ae_params, cnn_params, ae_opt_state, cnn_opt_state))
     train_step = make_train_step(cfg, opt.variant, opt.crop_size, cnn_apply, ae_tx, cnn_tx,
-                                 dp=group)
+                                 dp=group, remat=bool(opt.remat))
     np_rng = np.random.default_rng(opt.seed + start_iter)
     generator = torch.Generator(device=device).manual_seed(opt.seed + 1 + start_iter)
 

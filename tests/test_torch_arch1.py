@@ -69,12 +69,19 @@ def test_apply_rejects_training_mode_and_unknown_fusion():
     # training mode draws dropout masks: without a generator it refuses
     with pytest.raises(ValueError, match="generator"):
         tarch1.apply(tp, tcfg, tokens, image, deterministic=False)
-    # the training options not ported yet name their ROADMAP items
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tarch1.apply(tp, tcfg._replace(compute_dtype="bfloat16"), tokens, image)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tarch1.apply(tp, tcfg._replace(remat=True), tokens, image,
-                     generator=torch.Generator(), deterministic=False)
+    # the training options run (tests/test_torch_bf16.py and
+    # test_torch_remat.py hold them against the JAX package): bf16 gives
+    # f32 scores within JAX's own bf16 bound (5e-2) of the f32 route's, and
+    # remat the scores of no remat from the same generator seed
+    f32 = tarch1.apply(tp, tcfg, tokens, image)
+    bf16 = tarch1.apply(tp, tcfg._replace(compute_dtype="bfloat16"), tokens, image)
+    assert bf16.dtype == torch.float32 and 0 < float((bf16 - f32).abs().max()) < 5e-2
+    train = [tarch1.apply(tp, tcfg._replace(remat=remat), tokens, image,
+                          generator=torch.Generator().manual_seed(1), deterministic=False)
+             for remat in (False, True)]
+    assert torch.equal(train[0], train[1])
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tarch1.apply(tp, tcfg._replace(compute_dtype="float16"), tokens, image)
     with pytest.raises(ValueError, match="fusion"):
         tarch1.apply(tp, tcfg._replace(fusion="nope"), tokens, image)
 

@@ -285,8 +285,11 @@ def test_train_text_ae_refuses_unported_options(corpus, tmp_path):
             ttrain.main(base)  # the default device is cuda
         with pytest.raises(RuntimeError, match="cuda"):
             ttrain.main(base + ["--data_parallel", "1"])  # DP never falls back to the CPU
-    with pytest.raises(NotImplementedError, match="A9"):
-        ttrain.main(base + ["--device", "cpu", "--compute_dtype", "bfloat16"])
+    # ported: bf16 mixed precision trains (tests/test_torch_bf16.py)
+    ttrain.main(base + ["--device", "cpu", "--compute_dtype", "bfloat16"])
+    flat, meta = tckpt.load_npz(os.path.join(str(tmp_path), "model_id.npz"))
+    assert meta["cfg"]["compute_dtype"] == "bfloat16"
+    assert all(v.dtype == np.float32 and np.isfinite(v).all() for v in flat.values())
     with pytest.raises(ValueError, match="compute_dtype"):
         ttrain.main(base + ["--device", "cpu", "--compute_dtype", "float16"])
 

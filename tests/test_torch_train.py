@@ -380,7 +380,8 @@ def test_trainer_scan_profile_and_anomaly_options(dataset, tmp_path):
     [
         # ported (A13): DP joins the group on the card and never falls back
         (["--data_parallel", "1", "--device", "cuda"], RuntimeError, "cuda"),
-        (["--compute_dtype", "bfloat16"], NotImplementedError, "compute_dtype"),
+        # ported: mixed precision trains and writes the f32 masters
+        (["--compute_dtype", "bfloat16"], None, None),
         (["--compute_dtype", "fp16"], ValueError, "compute_dtype"),
     ],
     ids=["data_parallel", "bfloat16", "unknown_dtype"],
@@ -388,6 +389,14 @@ def test_trainer_scan_profile_and_anomaly_options(dataset, tmp_path):
 def test_trainer_refuses_unported_flags(dataset, tmp_path, extra, exc, match):
     if "cuda" in extra and torch.cuda.is_available():
         pytest.skip("this machine has a card: the run would go ahead")
+    if exc is None:
+        d = str(tmp_path) + "/"
+        ttrain.main(dataset["common"] + ["--checkpoint_path", d, "--max_iters", "2",
+                                         "--device", "cpu"] + extra)
+        flat, meta = tckpt.load_npz(d + "lstm.npz")
+        assert meta["cfg"]["compute_dtype"] == "bfloat16"
+        assert all(v.dtype == np.float32 and np.isfinite(v).all() for v in flat.values())
+        return
     with pytest.raises(exc, match=match):
         ttrain.main(dataset["common"] + ["--checkpoint_path", str(tmp_path) + "/",
                                          "--device", "cpu"] + extra)

@@ -330,16 +330,26 @@ def test_cli_start_from_text_loads_a_port_text_ae(corpora, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [("--data_parallel", "A13"), ("--remat", "A11")])
 def test_cli_refuses_what_is_not_ported(corpora, tmp_path, flag, item):
+    """Both items are ported.  A13: DP joins the group on the card and never
+    falls back to the CPU.  A11: ``--remat 1`` trains through two finetune
+    iterations to the checkpoint ``--remat 0`` writes (the recompute is
+    the forward)."""
     args = _cli_args(corpora, "vgg16", "null", str(tmp_path), flag, "1")
     if item == "A13":
-        # ported: DP joins the group on the card and never falls back to the CPU
         if torch.cuda.is_available():
             pytest.skip("this machine has a card: the run would go ahead")
         with pytest.raises(RuntimeError, match="cuda"):
             ttrain.main(args[: args.index("--device")] + args[args.index("--device") + 2:])
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ttrain.main(args)
+    flats = {}
+    for remat in ("0", "1"):
+        ckpt = str(tmp_path / f"remat{remat}")
+        ttrain.main(_cli_args(corpora, "vgg16", "null", ckpt, flag, remat, "--max_iters", "3",
+                              "--finetune_cnn_after", "1", "--save_checkpoint_every", "2"))
+        flats[remat] = load_npz(os.path.join(ckpt, "model_id.npz"))[0]
+    assert sorted(flats["1"]) == sorted(flats["0"])
+    for k, v in flats["0"].items():
+        np.testing.assert_array_equal(flats["1"][k], v, err_msg=k)
 
 
 def test_cli_defaults_to_the_card(corpora, tmp_path):
