@@ -38,7 +38,11 @@ Phases, each printing one JSON line:
      calls (``device_ms``) beside the time per call a Python caller sees
      (``kernel_ms``), the same for its plain version and the library
      call; the build line reports its and the seq2 kernel's registers
-     and spills (a spill fails the run);
+     and spills (a spill fails the run).  Then the gradients of
+     ``ops/lstm_vjp.FusedSeq`` (the ``NOVEL_VQA_SEQ_TRAIN=1`` route)
+     against autograd through the plain version on the card, within
+     GRAD_TOL of each gradient's largest entry, at the train slice's
+     layers (In=200 and 512) on question lengths and on the gaps masks;
   4. autograd: the forward-only kernel wrappers refuse an input that
      requires grad under grad mode, and launch nothing;
   5. slice: arch1 test-split inference through the eval CLI at the
@@ -52,17 +56,21 @@ Phases, each printing one JSON line:
      which steps cell by cell through the step kernel, against the plain
      step;
   7. route agreement: at the reference width and dropout 0, the arch1
-     loss and gradients of one batch through the ``NOVEL_VQA_FUSED2=1``
-     route (the seq2 kernel, bf16 storage) against the default route (the
-     f32 per-step cell), within ROUTE_TOL;
+     loss and gradients of one batch through each training route against
+     the default route (the f32 per-step cell): ``NOVEL_VQA_FUSED2=1``
+     (the seq2 kernel, bf16 storage) and ``NOVEL_VQA_SEQ_TRAIN=1`` (the
+     seq kernel per layer), each within its ``ROUTE_TOL``; each route's
+     launches per loss and gradients;
   8. train slice: the train CLI at the reference width on a synthetic
-     train/val/test split, both routes, ``--steps_per_dispatch`` 1 and 10:
-     seq2 launches equal the iterations under FUSED2 (none otherwise),
-     validation launches the seq kernel, every loss is finite; the
-     train-step time per route (CUDA events) and its device time by kernel
-     (torch.profiler); ``train_steps_scan`` of 10 steps makes no host sync
-     (``torch.cuda.set_sync_debug_mode("error")``); then the eval CLI on
-     the trained ``lstm.h5``;
+     train/val/test split, ``TRAIN_RUNS``: the default and FUSED2 routes
+     at ``--steps_per_dispatch`` 1 and 10, SEQ_TRAIN at 1: per iteration
+     one seq2 launch under FUSED2, L seq launches under SEQ_TRAIN,
+     validation's seq launches on every route, every loss finite; the
+     train-step time per
+     route (CUDA events), its device time by kernel and its device
+     operations (torch.profiler); ``train_steps_scan`` of 10 steps makes
+     no host sync (``torch.cuda.set_sync_debug_mode("error")``); then the
+     eval CLI on the trained ``lstm.h5``;
   9. decoders: whether this machine has PIL, and whether the native
      decoder (native/imagepipe.cpp) builds here, or why not;
  10. extract: VGG-16 fc7 at 224x224, batch 32, random seeded weights.
@@ -236,7 +244,8 @@ from novel_vqa_torch.core.device_bench import (
     profile,
     stage_profile,
 )
-from novel_vqa_torch.ops.lstm import fused2_route
+from novel_vqa_torch.ops.lstm import training_route
+from novel_vqa_torch.utils.selfcheck import GRAD_TOL, ROUTE_TOL, ROUTES, route_errors
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SCORE_TOL = 1e-4
@@ -254,10 +263,6 @@ SEQ2_FREE_ATOL = {"finals": 2e-3, "hs": 2.0**-8}
 # states alike passes the replay, which takes those states as its operands,
 # but differs on about half of them.
 SEQ2_HS_DIFFER_MAX = 0.1
-# FUSED2 route (bf16 storage) vs the default route (f32): loss relative
-# error, and each gradient's error relative to its largest entry (the JAX
-# package's bound for this comparison, tests/test_pallas_lstm.py:278)
-ROUTE_TOL = 5e-2
 SEED = 1234
 REPS = 20
 
@@ -274,6 +279,8 @@ N_TEST, N_IMG, N_MC = 4950, 2000, 18
 # the train slice's synthetic split and run length
 N_TRAIN, N_VAL, N_TEST_TRAIN = 5000, 1000, 1000
 TRAIN_ITERS = 20
+# the train CLI's runs: (route, steps per dispatch)
+TRAIN_RUNS = (("default", 1), ("default", 10), ("fused2", 1), ("fused2", 10), ("seq_train", 1))
 # the extract phase: VGG-16 fc7 at the reference extractor's input and
 # ExtractConfig's default batch; fc7 held to the CPU fp32 forward within
 # these relative errors (bf16: the JAX package's stated bound,
@@ -747,6 +754,32 @@ def run_seq2_mutants(K2, dev):
     return out
 
 
+# FusedSeq's gradient checks, at the train slice's layers on question
+# lengths and on the gaps masks
+SEQ_GRAD_CASES = ((BATCH, E, H, "eval"), (BATCH, H, H, "eval"), (BATCH, E, H, "gaps"), (BATCH, H, H, "gaps"))
+
+
+def grad_case(N, In, H_, mask_kind, gen, dev):
+    """``FusedSeq`` on the card against autograd through ``lstm_seq_plain``,
+    the selfcheck's loss: each gradient's largest difference over its
+    largest entry, within the selfcheck's GRAD_TOL (f32 on both sides,
+    TF32 off: the two backwards 1e-7 to 7e-7 apart on the CPU at these
+    shapes, where the forwards are the same code; the JAX package's TPU
+    bound, its products in bf16 passes, is 3e-3)."""
+    from novel_vqa_torch.kernels import lstm as K
+    from novel_vqa_torch.ops.lstm_vjp import FusedSeq
+    from novel_vqa_torch.utils.selfcheck import grad_rel_errors, seq_loss
+
+    rel = grad_rel_errors(FusedSeq.apply, K.lstm_seq_plain, seq_inputs(N, In, H_, mask_kind, gen, dev),
+                          (0, 2, 3, 4), seq_loss)
+    row = {"function": "FusedSeq", "N": N, "In": In, "H": H_, "mask": mask_kind,
+           "grad_rel_err": dict(zip(("xs", "wx", "wh", "b"), rel)), "max_grad_rel_err": max(rel),
+           "tol": GRAD_TOL}
+    if not max(rel) <= GRAD_TOL:
+        raise AssertionError(f"gradients through FusedSeq: {row}")
+    return row
+
+
 # --------------------------------------------------------------------------
 # phase 4: the forward-only wrappers refuse a training graph
 # --------------------------------------------------------------------------
@@ -1028,33 +1061,42 @@ def ref_batch(rs: np.random.RandomState, dev, n: int = BATCH):
     return [torch.from_numpy(a).to(dev) for a in (tokens, image, labels)]
 
 
-def run_route_agreement(K2, dev):
-    """Loss and gradients of one reference-width batch at dropout 0."""
-    from novel_vqa_torch.core.tree import tree_leaves, value_and_grad
+def run_route_agreement(K, K2, dev):
+    """Loss and gradients of one reference-width batch at dropout 0 on
+    each training route, against the default route's, and each route's
+    launches per loss and gradients."""
+    from novel_vqa_torch.core.tree import value_and_grad
     from novel_vqa_torch.models.vqa import arch1
 
     cfg = ref_cfg(dropout=0.0)
     params = arch1.init_params(cfg, torch.Generator().manual_seed(SEED + 2), device=dev)
     batch = ref_batch(np.random.RandomState(SEED + 2), dev)
+    # per loss and gradients: the seq2 kernel once, the seq kernel once per
+    # layer; the default route's plain cell none
+    expected = {"default": {}, "fused2": {"lstm_seq2": 1}, "seq_train": {"lstm_seq": L}}
 
-    res = {}
-    for route in ("default", "fused2"):
-        with fused2_route(route == "fused2"):
-            K2.lstm_seq2.launches = 0
+    res, out = {}, {"launches": {}, "loss": {}, "loss_rel_err": {}, "grad_rel_err_by_block": {},
+                    "tol": ROUTE_TOL}
+    for route in ROUTES:
+        with training_route(route):
+            zero_launches(K, K2)
             loss, grads = value_and_grad(arch1.loss_fn)(params, cfg, *batch, None)
             torch.cuda.synchronize()
-            res[route] = (float(loss), grads, K2.lstm_seq2.launches)
-    if (res["default"][2], res["fused2"][2]) != (0, 1):
-        raise AssertionError(f"seq2 launches {res['default'][2]} (default), {res['fused2'][2]} (FUSED2): expected 0, 1")
-    loss_rel = abs(res["fused2"][0] - res["default"][0]) / abs(res["default"][0])
-    grad_rel = {}
-    for block in params:
-        pairs = zip(tree_leaves(res["fused2"][1][block]), tree_leaves(res["default"][1][block]))
-        grad_rel[block] = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
-    if loss_rel > ROUTE_TOL or max(grad_rel.values()) > ROUTE_TOL:
-        raise AssertionError(f"FUSED2 vs default route: loss {loss_rel}, grads {grad_rel} outside {ROUTE_TOL}")
-    return {"loss_default": res["default"][0], "loss_fused2": res["fused2"][0],
-            "loss_rel_err": loss_rel, "grad_rel_err_by_block": grad_rel, "tol": ROUTE_TOL}
+            launches = kernel_launches(K, K2)
+        want = {"lstm_seq": 0, "lstm_step": 0, "lstm_seq2": 0, **expected[route]}
+        if launches != want:
+            raise AssertionError(f"route {route}: launches {launches}, expected {want}")
+        res[route] = (float(loss), grads)
+        out["launches"][route] = launches
+        out["loss"][route] = float(loss)
+    for route in ROUTES[1:]:
+        loss_rel, grad_rel = route_errors(res[route], res["default"])
+        tol = ROUTE_TOL[route]
+        if not (loss_rel <= tol and max(grad_rel.values()) <= tol):
+            raise AssertionError(f"{route} vs default route: loss {loss_rel}, grads {grad_rel} outside {tol}")
+        out["loss_rel_err"][route] = loss_rel
+        out["grad_rel_err_by_block"][route] = grad_rel
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1069,7 +1111,8 @@ def loss_emas(ckpt: str):
 def time_train_steps(K2, dev, tmp):
     """Train-step time per route at the reference width (CUDA events): one
     ``train_step_indexed`` and, per step, ``train_steps_scan`` of 10; each
-    route's step device time by kernel from torch.profiler."""
+    route's step device time by kernel and its device operations from
+    torch.profiler; ``train_steps_scan`` of 10 makes no host sync."""
     from novel_vqa_torch.data.vqa import VQAData
     from novel_vqa_torch.models.vqa import arch1
 
@@ -1082,8 +1125,8 @@ def time_train_steps(K2, dev, tmp):
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     qinds = torch.randint(0, N_TRAIN, (BATCH,), generator=gen, device=dev)
     out = {}
-    for route in ("default", "fused2"):
-        with fused2_route(route == "fused2"):
+    for route in ROUTES:
+        with training_route(route):
             def step():
                 arch1.train_step_indexed(cfg, tx, params, opt_state, store, qinds, gen)
 
@@ -1114,30 +1157,29 @@ def run_train_slice(K, K2, dev):
         write_split(tmp, np.random.RandomState(SEED + 3),
                     {"train": N_TRAIN, "val": N_VAL, "test": N_TEST_TRAIN})
         out["setup_s"] = time.perf_counter() - t0
-        for route in ("default", "fused2"):
-            for spd in (1, 10):
-                ckpt = os.path.join(tmp, f"{route}_{spd}")
-                argv = data_argv(tmp) + [
-                    "--checkpoint_path", ckpt + "/", "--max_iters", str(TRAIN_ITERS),
-                    "--steps_per_dispatch", str(spd), "--log_every", "10", "--device", dev.type]
-                with fused2_route(route == "fused2"):
-                    K.lstm_seq.launches = K.lstm_step.launches = K2.lstm_seq2.launches = 0
-                    t0 = time.perf_counter()
-                    train_vqa_arch1.main(argv)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                    launches = {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches,
-                                "lstm_seq2": K2.lstm_seq2.launches}
-                # one validation (iteration 0) through the seq kernel, and
-                # under FUSED2 one seq2 launch per training iteration
-                expected = {"lstm_seq": L * n_val_batches, "lstm_step": 0,
-                            "lstm_seq2": TRAIN_ITERS if route == "fused2" else 0}
-                if launches != expected:
-                    raise AssertionError(f"train {route} spd={spd}: launches {launches}, expected {expected}")
-                emas = loss_emas(ckpt)
-                if len(emas) != TRAIN_ITERS // 10 or not all(np.isfinite(emas)):
-                    raise AssertionError(f"train {route} spd={spd}: loss EMAs {emas}")
-                out["runs"][f"{route}_spd{spd}"] = {"wall_s": wall, "launches": launches, "loss_ema": emas}
+        for route, spd in TRAIN_RUNS:
+            ckpt = os.path.join(tmp, f"{route}_{spd}")
+            argv = data_argv(tmp) + [
+                "--checkpoint_path", ckpt + "/", "--max_iters", str(TRAIN_ITERS),
+                "--steps_per_dispatch", str(spd), "--log_every", "10", "--device", dev.type]
+            with training_route(route):
+                zero_launches(K, K2)
+                t0 = time.perf_counter()
+                train_vqa_arch1.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = kernel_launches(K, K2)
+            # one validation (iteration 0) through the seq kernel, 2 per
+            # batch; per training iteration the seq2 kernel once under
+            # FUSED2, the seq kernel once per layer under SEQ_TRAIN
+            expected = {"lstm_seq": L * n_val_batches + (L * TRAIN_ITERS if route == "seq_train" else 0),
+                        "lstm_step": 0, "lstm_seq2": TRAIN_ITERS if route == "fused2" else 0}
+            if launches != expected:
+                raise AssertionError(f"train {route} spd={spd}: launches {launches}, expected {expected}")
+            emas = loss_emas(ckpt)
+            if len(emas) != TRAIN_ITERS // 10 or not all(np.isfinite(emas)):
+                raise AssertionError(f"train {route} spd={spd}: loss EMAs {emas}")
+            out["runs"][f"{route}_spd{spd}"] = {"wall_s": wall, "launches": launches, "loss_ema": emas}
 
         res = os.path.join(tmp, "result")
         K.lstm_seq.launches = 0
@@ -2634,7 +2676,7 @@ def run_op_profile(K, K2, dev, smi: str) -> dict:
 
     out = {"card": smi, "batch": BATCH, "steps_per_call": OP_STEPS, "calls": OP_CHUNKS}
     for route in ("default", "fused2"):
-        with fused2_route(route == "fused2"):
+        with training_route(route):
             K.lstm_seq.launches = K.lstm_step.launches = K2.lstm_seq2.launches = 0
             rec = op_profile.profile_workload("arch1", BATCH, OP_STEPS, OP_CHUNKS, top=8, device=dev)
             launches = {"lstm_seq": K.lstm_seq.launches, "lstm_step": K.lstm_step.launches,
@@ -2767,7 +2809,7 @@ def dp_runs(tmp: str, dp: bool) -> dict:
                       "lstm_seq2": K2.lstm_seq2.launches}
 
     for route in ("default", "fused2"):
-        with fused2_route(route == "fused2"):
+        with training_route(route):
             run(f"train_{route}", train_vqa_arch1.main, [
                 "--checkpoint_path", os.path.join(base, route) + "/", "--max_iters", str(DP_ITERS),
                 "--save_checkpoint_every", str(DP_ITERS), "--steps_per_dispatch", str(DP_SPD),
@@ -2968,7 +3010,7 @@ def run_mixed_precision(K, K2, dev, smi: str) -> dict:
         runs = {}
         for route in ("default", "fused2"):
             ckpt = os.path.join(tmp, f"bf16_{route}")
-            with fused2_route(route == "fused2"):
+            with training_route(route):
                 zero_launches(K, K2)
                 t0 = time.perf_counter()
                 train_vqa_arch1.main(data_argv(tmp) + [
@@ -3235,13 +3277,16 @@ def main(argv=None) -> int:
     seq2_rows = [seq2_case(K2, *case, gen, dev) for case in SEQ2_CASES]
     for row in seq_rows + step_rows + seq2_rows:
         emit({"phase": "kernel_check", **row})
+    grad_rows = [grad_case(*case, gen, dev) for case in SEQ_GRAD_CASES]
+    for row in grad_rows:
+        emit({"phase": "grad_check", **row})
     emit({"phase": "autograd_refusal", **run_autograd_refusal(K, K2, dev)})
 
     slice_out = run_slice(K, dev)
     emit({"phase": "slice", **slice_out})
     step_out = run_step_route(K, dev, gen)
     emit({"phase": "step_route", **step_out})
-    emit({"phase": "route_agreement", **run_route_agreement(K2, dev)})
+    emit({"phase": "route_agreement", **run_route_agreement(K, K2, dev)})
     train_out = run_train_slice(K, K2, dev)
     emit({"phase": "train_slice", **train_out})
 
@@ -3303,6 +3348,11 @@ def main(argv=None) -> int:
         entry("lstm_seq2", seq2_rows, train_out["runs"]["fused2_spd1"]["launches"]["lstm_seq2"],
               SEQ2_REPLACES, SEQ2_SOURCE),
     ]
+    # the SEQ_TRAIN route: the train CLI's seq launches (validation
+    # included) and FusedSeq's gradient checks
+    kernels[0]["launches_seq_train"] = train_out["runs"]["seq_train_spd1"]["launches"]["lstm_seq"]
+    kernels[0]["grad_max_rel_err"] = max(r["max_grad_rel_err"] for r in grad_rows)
+    kernels[0]["grad_tol"] = GRAD_TOL
     kernels[2]["products"] = "mma.sync m16n8k16 bf16, f32 accumulate"
     kernels[2]["replay_err_ratio"] = max(max(r["replay_err_ratio"].values()) for r in seq2_rows)
     kernels[2]["hs_bf16_differ_share"] = max(max(r["hs_bf16_differ_share"]) for r in seq2_rows)

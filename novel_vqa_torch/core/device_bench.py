@@ -279,7 +279,8 @@ def _device_events(prof):
 
 def profile(fn, top: int = 8) -> dict:
     """Device time by kernel name over one call of ``fn`` (after one
-    warm-up call), from torch.profiler; the device-side copies of
+    warm-up call), and the device operations it ran (kernels, copies,
+    memsets), from torch.profiler; the device-side copies of
     ``record_function`` ranges are left out, which would count their
     kernels twice."""
     from torch.profiler import ProfilerActivity
@@ -294,7 +295,7 @@ def profile(fn, top: int = 8) -> dict:
               and e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     total = sum(e.device_time_total for e in events)
     events.sort(key=lambda e: -e.device_time_total)
-    return {"device_ms_total": total / 1e3,
+    return {"device_ms_total": total / 1e3, "device_ops": sum(e.count for e in events),
             "top": [{"name": e.key[:80], "ms": e.device_time_total / 1e3, "count": e.count}
                     for e in events[:top]]}
 

@@ -32,7 +32,8 @@ The kernels compute forwards only: their outputs carry no ``grad_fn``.  So
 on a CUDA tensor each wrapper raises when grad mode is on and an input
 requires grad, rather than hand a training graph outputs that would cut it
 (:func:`refuse_grad`).  Training reaches these kernels only through an
-autograd Function whose backward is written out (``ops/lstm2.py``).
+autograd Function whose backward is written out: ``ops/lstm_vjp.FusedSeq``
+(``NOVEL_VQA_SEQ_TRAIN=1``), as ``ops/lstm2.Fused2`` does the seq2 kernel.
 
 Both take ``b = bx + bh`` (the Pallas kernels' convention) and weights
 stored (in, 4H), gate order i, f, o, g.
@@ -113,7 +114,8 @@ def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
             f"{what}: an input requires grad under grad mode, but the CUDA "
             "kernel computes a forward only and its outputs would cut the "
             "graph; call it under torch.no_grad()/inference_mode(), or train "
-            "through a route with a backward (ops/lstm.py)"
+            "through a route with a backward (ops/lstm.py): NOVEL_VQA_SEQ_TRAIN=1 "
+            "(ops/lstm_vjp.FusedSeq) or NOVEL_VQA_FUSED2=1 (ops/lstm2.Fused2)"
         )
 
 

@@ -22,14 +22,26 @@ For float32 inputs:
     ``init_state``, no ``return_sequence``, no ``remat``) runs one
     seq-kernel launch per layer, layer k+1 fed layer k's per-step hidden
     states (``pallas_lstm_encode``);
-  * under ``NOVEL_VQA_FUSED2=1``, a training encode of exactly two layers
-    with ``rnn_size % 128 == 0``, CUDA inputs and no ``remat`` runs the
-    seq2 kernel once (``ops/lstm2.fused2_encode_train``; bf16 storage, so
-    its results differ from the default route's in the last bf16 bits);
+  * a training whole-sequence encode (no ``remat`` either) of CUDA inputs
+    with ``rnn_size % 128 == 0`` takes, in this order, the first route
+    its environment asks for:
+      - ``NOVEL_VQA_FUSED2=1`` with exactly two layers: the seq2 kernel
+        once (``ops/lstm2.fused2_encode_train``; bf16 storage, so its
+        results differ from the default route's in the last bf16 bits);
+      - ``NOVEL_VQA_SEQ_TRAIN=1``: one seq-kernel launch per layer with
+        the written-out backward (``ops/lstm_vjp.seq_encode_train``); its
+        dropout is one (T, N, H) draw per layer boundary, not one (N, H)
+        draw per step and layer, so a CUDA generator gives it other masks
+        than the per-step route's, from the same distribution;
   * every other encode steps cell by cell through :func:`lstm_step`: the
     step kernel in eval, and in training the plain cell with autograd
     (the JAX package's XLA cell, ops/lstm.py:76-122), with inter-layer
     dropout.
+The environment is read at each call (:func:`training_route` sets it for
+a block).  ``NOVEL_VQA_PALLAS`` is not ported: ``=0`` (the plain cell
+everywhere) would put the plain version on the card's main path, and
+``=all`` (training steps through the step kernel) gave the default
+route's loss on an H100 and was slower (PERF.md, Findings).
 The bf16 cell is JAX's: gates in f32 from products with an f32 result
 (``ops/precision.dot_f32``) plus the bf16 biases, the activations and
 ``c'`` in f32, then ``c'`` and ``h'`` rounded to the carry's dtype.
@@ -38,8 +50,9 @@ in the backward (``torch.utils.checkpoint``); the step's dropout masks
 are drawn before it, so the recompute applies the same masks.
 The kernel wrappers (``kernels/``) launch the CUDA kernels on CUDA tensors
 and run their plain versions on CPU tensors; their outputs carry no
-``grad_fn``, so a training forward reaches them only through
-``ops/lstm2.Fused2``, whose backward is written out.
+``grad_fn``, so a training forward reaches them only through an autograd
+Function whose backward is written out: ``ops/lstm2.Fused2`` and
+``ops/lstm_vjp.FusedSeq``.
 """
 
 from __future__ import annotations
@@ -55,24 +68,44 @@ from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.kernels import lstm as kernels
 from novel_vqa_torch.ops.dropout import apply_mask, dropout_mask
 from novel_vqa_torch.ops.lstm2 import fused2_encode_train
+from novel_vqa_torch.ops.lstm_vjp import seq_encode_train
 from novel_vqa_torch.ops.precision import dot_f32
 
 LSTMLayerParams = Dict[str, torch.Tensor]  # {"wx", "bx", "wh", "bh"}
 
 
+# the training routes' environment variables and the value that selects each
+ROUTE_ENV = {
+    "fused2": ("NOVEL_VQA_FUSED2", "1"),
+    "seq_train": ("NOVEL_VQA_SEQ_TRAIN", "1"),
+}
+
+
 @contextlib.contextmanager
-def fused2_route(on: bool):
-    """``NOVEL_VQA_FUSED2=1`` inside the block when ``on``, unset when not;
-    the caller's setting afterwards (the route is read at each encode)."""
-    old = os.environ.pop("NOVEL_VQA_FUSED2", None)
-    if on:
-        os.environ["NOVEL_VQA_FUSED2"] = "1"
+def training_route(name: str):
+    """The training route ``name`` inside the block: ``"default"`` unsets
+    every variable of :data:`ROUTE_ENV`, another name sets its own and
+    unsets the others; the caller's settings afterwards (the route is read
+    at each encode)."""
+    if name != "default" and name not in ROUTE_ENV:
+        raise ValueError(f"training route {name!r}: one of default, {', '.join(ROUTE_ENV)}")
+    old = {var: os.environ.pop(var, None) for var, _ in ROUTE_ENV.values()}
+    if name != "default":
+        var, value = ROUTE_ENV[name]
+        os.environ[var] = value
     try:
         yield
     finally:
-        os.environ.pop("NOVEL_VQA_FUSED2", None)
-        if old is not None:
-            os.environ["NOVEL_VQA_FUSED2"] = old
+        for var, value in old.items():
+            os.environ.pop(var, None)
+            if value is not None:
+                os.environ[var] = value
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether the training routes through a kernel take ``t``: a CUDA
+    tensor (the JAX package's TPU test)."""
+    return t.is_cuda
 
 
 def lstm_layer_init(
@@ -231,14 +264,13 @@ def lstm_encode(
             inp = hs
         return torch.stack(cs), torch.stack(hs_final)
     if (
-        whole_sequence
-        and os.environ.get("NOVEL_VQA_FUSED2", "0") == "1"
-        and len(params) == 2
-        and params[0]["wh"].shape[0] % 128 == 0
-        and kernel_dtype
-        and xs.is_cuda
+        whole_sequence and not deterministic and kernel_dtype
+        and params[0]["wh"].shape[0] % 128 == 0 and _on_card(xs)
     ):
-        return fused2_encode_train(params, xs, mask, dropout_rate, generator, dp)
+        if os.environ.get("NOVEL_VQA_FUSED2", "0") == "1" and len(params) == 2:
+            return fused2_encode_train(params, xs, mask, dropout_rate, generator, dp)
+        if os.environ.get("NOVEL_VQA_SEQ_TRAIN", "0") == "1":
+            return seq_encode_train(params, xs, mask, dropout_rate, generator, dp)
 
     seq_len, batch, _ = xs.shape
     if init_state is None:
