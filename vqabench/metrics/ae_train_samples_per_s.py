@@ -1,0 +1,7 @@
+"""The text autoencoder's training throughput: the sentences trained in
+the measured window over all of the window's time (host clock, from the
+first call to the card's end)."""
+
+
+def read(m):
+    return m.units / m.window_s
