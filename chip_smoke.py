@@ -121,7 +121,7 @@ Phases, each printing one JSON line:
      weights, as phase 10 does VGG: the pipelined loop on INC_BATCHES
      predecoded batches, float32 (TF32 off) and bf16: images/s, the
      forward's ms per batch against its bound (FLOPs from the conv shapes),
-     device ms by stage (inception.stem, .mixed5, .mixed6, .mixed7, .pool)
+     device ms by stage (nvqa.inception.stem, .mixed5, .mixed6, .mixed7, .pool)
      and the idle share; the first two images against the port's CPU fp32
      forward (INC_REL_TOL); the CLI, ``--model inception``, on synthetic
      PNGs (center square crop), its rows against that forward;

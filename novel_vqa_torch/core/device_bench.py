@@ -21,14 +21,10 @@ This module provides:
     ``fn`` (static inputs), from a CUDA graph of ``calls`` calls replayed
     between CUDA events: no host launch cost inside;
   * :func:`profile` and :func:`stage_profile`: device time by kernel name
-    and by ``record_function`` stage over one call;
-  * :func:`peak_flops`: the card's peak FLOP/s by name (bf16 dense, the MFU
-    denominator, and fp32 beside it); :func:`bound`, the least time for
-    given FLOPs and bytes;
-  * :func:`summarize`: (FLOPs/step, device seconds, items/step) -> the
-    ``{items_per_sec, device_step_ms, mfu}`` record, refusing an MFU > 1
-    as trustworthy (copied from the JAX package);
-  * the analytic step FLOPs of arch1, arch2 and the text AE (copied).
+    and by tracer span (``core/profiling.span``) over one call;
+  * :func:`peak_flops`: the card's peak FLOP/s by name (bf16 dense, and
+    fp32 beside it); :func:`bound`, the least time for given FLOPs and
+    bytes.
 """
 
 from __future__ import annotations
@@ -45,6 +41,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from novel_vqa_torch.core.profiling import collect
+
 __all__ = [
     "ModuleStat",
     "TraceSummary",
@@ -58,10 +56,6 @@ __all__ = [
     "stage_profile",
     "peak_flops",
     "bound",
-    "summarize",
-    "analytic_flops_arch1_step",
-    "analytic_flops_arch2_step",
-    "analytic_flops_text_ae_step",
     "FP32_FLOPS",
     "BF16_FLOPS",
     "HBM_BYTES_PER_S",
@@ -300,19 +294,22 @@ def profile(fn, top: int = 8) -> dict:
                     for e in events[:top]]}
 
 
-def stage_profile(fn, top: int = 6, stages=("extract.", "vgg.", "inception.")) -> dict:
-    """Device ms by stage over one call of ``fn``, from torch.profiler: each
-    ``record_function`` range whose name starts with one of ``stages``
-    (the extraction forwards': extract.prepro, vgg.block1..5, vgg.fc6,
-    vgg.fc7; inception.stem, .mixed5, .mixed6, .mixed7, .pool) sums the
-    device time of the kernels launched inside it; beside it the total
-    kernel time and the kernels that take most of it."""
+def stage_profile(fn, top: int = 6,
+                  stages=("nvqa.extract.", "nvqa.vgg.", "nvqa.inception.")) -> dict:
+    """Device ms by stage over one call of ``fn``, from torch.profiler with
+    the tracer on: each span range whose name starts with one of ``stages``
+    (the extraction forwards': nvqa.extract.prepro, nvqa.vgg.block1..5,
+    nvqa.vgg.fc6, nvqa.vgg.fc7; nvqa.inception.stem, .mixed5, .mixed6,
+    .mixed7, .pool) sums the device time of the kernels launched inside
+    it; beside it the total kernel time and the kernels that take most of
+    it."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            collect():
         fn()
         torch.cuda.synchronize()
     by_stage = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
@@ -357,123 +354,3 @@ def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS) -> Tuple[float,
     larger)."""
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def summarize(
-    *,
-    flops_per_step: Optional[float],
-    device_s: Optional[float],
-    n_steps: int,
-    items_per_step: float,
-    wall_s: float,
-    peak: Optional[float],
-) -> dict:
-    """Build the honest throughput record.
-
-    Primary figures derive from trace device time when available.  Wall-clock
-    figures are always included for transparency, but when they would imply
-    an MFU above 1.0 (physically impossible) they are marked untrusted and
-    never used as the headline value.
-    """
-    rec: dict = {
-        "n_steps": n_steps,
-        "items_per_step": items_per_step,
-        "wall_s": round(wall_s, 4),
-    }
-    if flops_per_step:
-        rec["flops_per_step"] = flops_per_step
-
-    wall_items = items_per_step * n_steps / wall_s if wall_s > 0 else None
-    wall_mfu = (
-        flops_per_step * n_steps / wall_s / peak
-        if (flops_per_step and peak and wall_s > 0)
-        else None
-    )
-    if wall_items is not None:
-        rec["wall_items_per_sec"] = round(wall_items, 2)
-    if wall_mfu is not None:
-        rec["wall_mfu"] = round(wall_mfu, 4)
-        rec["wall_clock_trusted"] = wall_mfu <= 1.0
-
-    if device_s and device_s > 0:
-        rec["timing_source"] = "profiler_device_time"
-        rec["device_step_ms"] = round(device_s / n_steps * 1e3, 4)
-        rec["items_per_sec"] = round(items_per_step * n_steps / device_s, 2)
-        if flops_per_step and peak:
-            rec["mfu"] = round(flops_per_step * n_steps / device_s / peak, 4)
-    elif wall_mfu is None or wall_mfu <= 1.0:
-        # no device plane (CPU run): wall-clock is the only figure
-        rec["timing_source"] = "wall_clock"
-        rec["device_step_ms"] = None
-        rec["items_per_sec"] = rec.get("wall_items_per_sec")
-        if wall_mfu is not None:
-            rec["mfu"] = round(wall_mfu, 4)
-    else:
-        # wall clock implies >100% MFU and there is no device time: refuse
-        rec["timing_source"] = "untrusted"
-        rec["device_step_ms"] = None
-        rec["items_per_sec"] = None
-    return rec
-
-
-def analytic_flops_arch1_step(cfg, batch_size: int, seq_len: int) -> float:
-    """Analytic matmul FLOPs for ONE arch1 fwd+bwd+update train step.
-
-    Counts the matmul terms only (gates, fusion, classifier; fwd + ~2x for
-    bwd), which dominate; elementwise/optimizer FLOPs are ignored.  Workload
-    per 002_train_vqa_arch1/002_train_baseline.lua:141-157.
-    """
-    E, H, L = cfg.input_encoding_size, cfg.rnn_size, cfg.rnn_layer
-    per_tok = 0.0
-    for layer in range(L):
-        in_size = E if layer == 0 else H
-        per_tok += 2.0 * 4 * H * (in_size + H)  # x@Wi + h@Wh
-    lstm = per_tok * seq_len
-    fusion = 2.0 * (2 * H * L) * cfg.common_embedding_size + 2.0 * cfg.nhimage * cfg.common_embedding_size
-    classifier = 2.0 * cfg.common_embedding_size * cfg.num_output
-    fwd = (lstm + fusion + classifier) * batch_size
-    return 3.0 * fwd  # bwd ~= 2x fwd
-
-
-def analytic_flops_arch2_step(cfg, batch_size: int, seq_len: int) -> float:
-    """Analytic matmul FLOPs for ONE arch2 fwd+bwd+update train step
-    (003_train_vqa_arch2/002_train_baseline.lua: cnn_projection ->
-    nn.Encoder over [img, START, w1..wL] -> classifier).
-
-    The encoder runs ``seq_len + 2`` LSTM steps (image tick + START token +
-    tokens, misc/Encoder_lstm.lua:170-226); bwd ~= 2x fwd.
-    """
-    E, H = cfg.input_encoding_size, cfg.rnn_size
-    per_tok = 0.0
-    for i in range(cfg.num_layers):
-        in_size = E if i == 0 else H
-        per_tok += 2.0 * 4 * H * (in_size + H)
-    enc = per_tok * (seq_len + 2)
-    proj = 2.0 * cfg.nhimage * E
-    classifier = 2.0 * H * cfg.num_output
-    return 3.0 * (enc + proj + classifier) * batch_size
-
-
-def analytic_flops_text_ae_step(cfg, batch_size: int, seq_len: int) -> float:
-    """Analytic matmul FLOPs for ONE text-AE fwd+bwd+update train step
-    (001_train_autoencoder/001_train_arch1_text_autoencoder.lua:208-249).
-
-    Encoder: ``seq_len`` LSTM steps; decoder: ``seq_len + 1`` steps of gates
-    plus the dominant Linear(H, V+1) projection.  bwd ~= 2x fwd, plus one
-    extra decoder forward (the JAX package rematerializes the fused-NLL
-    body; the count is kept as the JAX package's, so both report one
-    number for one workload)."""
-    E, H = cfg.input_encoding_size, cfg.rnn_size
-    enc_tok = 0.0
-    for i in range(cfg.num_layers):
-        in_size = E if i == 0 else H
-        enc_tok += 2.0 * 4 * H * (in_size + H)
-    enc = enc_tok * seq_len
-    dec_tok = 0.0
-    for i in range(cfg.decoder_layers):
-        in_size = E if i == 0 else H
-        dec_tok += 2.0 * 4 * H * (in_size + H)
-    dec_tok += 2.0 * H * (cfg.vocab_size + 1)  # logits projection
-    dec = dec_tok * (seq_len + 1)
-    fwd = (enc + dec) * batch_size
-    return 3.0 * fwd + dec * batch_size  # + the recompute of the decoder

@@ -13,6 +13,8 @@ from typing import Any, Callable, List, Tuple
 
 import torch
 
+from novel_vqa_torch.core.profiling import span
+
 
 def _is_namedtuple(tree: Any) -> bool:
     return isinstance(tree, tuple) and hasattr(tree, "_fields")
@@ -42,14 +44,17 @@ def value_and_grad(fn: Callable) -> Callable:
     returns (value detached, grads in the structure of ``params``).  The
     caller's tensors are not touched: the graph is built on detached
     aliases.  A leaf ``fn`` does not reach (a frozen lookup, behind
-    ``detach``) gets a zero gradient, as JAX gives it."""
+    ``detach``) gets a zero gradient, as JAX gives it.  The forward and the
+    backward are the tracer's ``train.forward`` and ``train.backward``."""
 
     def wrapped(params, *args, **kwargs) -> Tuple[torch.Tensor, Any]:
         with torch.enable_grad():
             live = tree_map(lambda p: p.detach().requires_grad_(), params)
-            value = fn(live, *args, **kwargs)
+            with span("train.forward"):
+                value = fn(live, *args, **kwargs)
             leaves = tree_leaves(live)
-            grads = torch.autograd.grad(value, leaves, allow_unused=True)
+            with span("train.backward"):
+                grads = torch.autograd.grad(value, leaves, allow_unused=True)
         it = iter(torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves))
         return value.detach(), tree_map(lambda _: next(it), params)
 

@@ -48,6 +48,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from novel_vqa_torch.core.device import resolve_device
+from novel_vqa_torch.core.profiling import span
 from novel_vqa_torch.ops.dropout import dropout
 from novel_vqa_torch.ops.embedding import embedding_lookup
 from novel_vqa_torch.ops.fusion import axb_apply
@@ -181,7 +182,8 @@ def encode(
     """The variant's encoder: the final (c, h), each (layers, N, H).  On
     a DP group (``dp``, ``parallel/mesh.DPGroup``) ``seq`` is this rank's
     slice of the batch, and the can_skip and the dropout masks span the
-    global batch, as they do on one device."""
+    global batch, as they do on one device.  The encoder's steps are the
+    tracer's ``lstm.encode`` span, as ``ops/lstm.lstm_encode``'s are."""
     params, imgs = _cast_compute(cfg, params, imgs)
     L, N = seq.shape
     embs = _embed(params, cfg, seq, generator, deterministic, dp)  # (L, N, E)
@@ -194,7 +196,8 @@ def encode(
         active = torch.cat([token_active.new_ones(2), token_active])
     else:
         xs, active = embs, token_active
-    return _scan_encoder(params["encoder"], xs, active, cfg, generator, deterministic, dp)
+    with span("lstm.encode"):
+        return _scan_encoder(params["encoder"], xs, active, cfg, generator, deterministic, dp)
 
 
 def _decoder_steps(params, cfg: AEConfig, init_state: State, seq, generator, deterministic,

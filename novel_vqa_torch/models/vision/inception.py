@@ -15,9 +15,10 @@ conv -> BN -> ReLU.  The JAX package's default fuses the same-input 1x1
 heads into one conv and pools after BN (``_cbr_multi``), and it has TPU
 routes for the stem (space-to-depth, lane packing); all of these are exact
 rewrites of this math, so the two packages differ by float reassociation
-only.  Each stage runs inside a ``torch.profiler.record_function`` range
-(``inception.stem``, ``.mixed5``, ``.mixed6``, ``.mixed7``, ``.pool``,
-``.logits``), so a profile reads the device time by stage.
+only.  Each stage is a tracer span (``core/profiling.span``:
+``inception.stem``, ``.mixed5``, ``.mixed6``, ``.mixed7``, ``.pool``,
+``.logits``), so a profile taken with the tracer on reads the device time
+by stage (``nvqa.inception.*``).
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ from __future__ import annotations
 from typing import Any, Dict, Iterator, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from novel_vqa_torch.core.device import resolve_device
+from novel_vqa_torch.core.profiling import span
 from novel_vqa_torch.models.vision.layers import (
     avg_pool,
     bn_init,
@@ -188,30 +189,30 @@ def apply(params: Dict[str, Any], cfg: InceptionConfig, images: torch.Tensor,
     """Forward of (N, 3, H, W) normalized RGB images; ``tap`` "pool" gives
     the (N, 2048) f32 global average pool, "logits" the ``fc`` head."""
     s = params["stem"]
-    with record_function("inception.stem"):
+    with span("inception.stem"):
         x = _cbr(s["c1"], images, 2, "VALID")
         x = _cbr(s["c2"], x, 1, "VALID")
         x = max_pool(_cbr(s["c3"], x), 3, 2)
         x = _cbr(s["c5"], _cbr(s["c4"], x, 1, "VALID"), 1, "VALID")
         x = max_pool(x, 3, 2)
-    with record_function("inception.mixed5"):
+    with span("inception.mixed5"):
         for name in ("mixed5b", "mixed5c", "mixed5d"):
             x = _inception_a(params[name], x)
-    with record_function("inception.mixed6"):
+    with span("inception.mixed6"):
         x = _inception_b(params["mixed6a"], x)
         for name in ("mixed6b", "mixed6c", "mixed6d", "mixed6e"):
             x = _inception_c(params[name], x)
-    with record_function("inception.mixed7"):
+    with span("inception.mixed7"):
         x = _inception_d(params["mixed7a"], x)
         for name in ("mixed7b", "mixed7c"):
             x = _inception_e(params[name], x)
-    with record_function("inception.pool"):
+    with span("inception.pool"):
         x = x.mean(dim=(2, 3))
     if tap == "pool":
         return x
     if tap != "logits":
         raise ValueError(f"unknown Inception tap {tap!r}: 'pool' or 'logits'")
-    with record_function("inception.logits"):
+    with span("inception.logits"):
         return linear(params["fc"], x)
 
 

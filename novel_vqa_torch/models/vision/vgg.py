@@ -8,10 +8,10 @@ returns exactly that.  Inputs are (N, 3, H, W) float32 in BGR order, scaled
 to [0, 255] and mean-subtracted (``data/images.vgg_device_prepro``).
 
 fc6 reads pool5 flattened in caffe's CHW order, so converted fc6 weights
-load unchanged; in NCHW that is a plain reshape.  Each stage runs inside a
-``torch.profiler.record_function`` range (``vgg.block1`` .. ``vgg.block5``,
-``vgg.fc6``, ``vgg.fc7``, ``vgg.fc8`` / ``vgg.embed``), so a profile reads
-the device time by stage.
+load unchanged; in NCHW that is a plain reshape.  Each stage is a tracer
+span (``core/profiling.span``: ``vgg.block1`` .. ``vgg.block5``,
+``vgg.fc6``, ``vgg.fc7``, ``vgg.fc8`` / ``vgg.embed``), so a profile taken
+with the tracer on reads the device time by stage (``nvqa.vgg.*``).
 """
 
 from __future__ import annotations
@@ -19,9 +19,9 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from novel_vqa_torch.core.device import resolve_device
+from novel_vqa_torch.core.profiling import span
 from novel_vqa_torch.models.vision.layers import conv2d, conv_init, linear, linear_init, max_pool
 
 # convs per block (all 3x3), a 2x2 max-pool after each.  "vggembed" is the
@@ -84,22 +84,22 @@ def apply(params: Dict[str, Any], cfg: VGGConfig, images: torch.Tensor,
     x = images
     ci = 0
     for bi, n in enumerate(_BLOCKS[cfg.arch]):
-        with record_function(f"vgg.block{bi + 1}"):
+        with span(f"vgg.block{bi + 1}"):
             for _ in range(n):
                 x = conv2d(params["conv"][ci], x)
                 ci += 1
             x = max_pool(x)
     if tap == "pool5":
         return x
-    with record_function("vgg.fc6"):
+    with span("vgg.fc6"):
         x = linear(params["fc6"], x.reshape(x.shape[0], -1), relu=True)
     if tap == "fc6":
         return x
-    with record_function("vgg.fc7"):
+    with span("vgg.fc7"):
         x = linear(params["fc7"], x, relu=True)
     if tap == "fc7":
         return x
-    with record_function(f"vgg.{tap}"):
+    with span(f"vgg.{tap}"):
         return linear(params[tap], x)
 
 

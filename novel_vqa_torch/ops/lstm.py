@@ -65,6 +65,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from novel_vqa_torch.core.device import resolve_device
+from novel_vqa_torch.core.profiling import span
 from novel_vqa_torch.kernels import lstm as kernels
 from novel_vqa_torch.ops.dropout import apply_mask, dropout_mask
 from novel_vqa_torch.ops.lstm2 import fused2_encode_train
@@ -247,58 +248,60 @@ def lstm_encode(
     (``deterministic=False``), at the global batch's shape on a DP group
     (``dp``).
     ``remat`` recomputes each training step in the backward instead of
-    keeping its activations; the results are the same.
+    keeping its activations; the results are the same.  The tracer's span
+    is ``lstm.encode``.
     """
-    whole_sequence = init_state is None and not return_sequence and not remat
-    kernel_dtype = xs.dtype == torch.float32
-    if whole_sequence and deterministic and kernel_dtype:
-        mask = mask.contiguous()
-        cs, hs_final = [], []
-        inp = xs.contiguous()
-        for layer in params:
-            c, h, hs = kernels.lstm_seq(
-                inp, mask, layer["wx"], layer["wh"], layer["bx"] + layer["bh"]
+    with span("lstm.encode"):
+        whole_sequence = init_state is None and not return_sequence and not remat
+        kernel_dtype = xs.dtype == torch.float32
+        if whole_sequence and deterministic and kernel_dtype:
+            mask = mask.contiguous()
+            cs, hs_final = [], []
+            inp = xs.contiguous()
+            for layer in params:
+                c, h, hs = kernels.lstm_seq(
+                    inp, mask, layer["wx"], layer["wh"], layer["bx"] + layer["bh"]
+                )
+                cs.append(c)
+                hs_final.append(h)
+                inp = hs
+            return torch.stack(cs), torch.stack(hs_final)
+        if (
+            whole_sequence and not deterministic and kernel_dtype
+            and params[0]["wh"].shape[0] % 128 == 0 and _on_card(xs)
+        ):
+            if os.environ.get("NOVEL_VQA_FUSED2", "0") == "1" and len(params) == 2:
+                return fused2_encode_train(params, xs, mask, dropout_rate, generator, dp)
+            if os.environ.get("NOVEL_VQA_SEQ_TRAIN", "0") == "1":
+                return seq_encode_train(params, xs, mask, dropout_rate, generator, dp)
+
+        seq_len, batch, _ = xs.shape
+        if init_state is None:
+            rnn_size = params[0]["wh"].shape[0]
+            zeros = xs.new_zeros(len(params), batch, rnn_size)
+            init_state = (zeros, zeros)
+        c, h = init_state
+
+        def step(x_t, m_t, c, h, masks):
+            c_new, h_new = lstm_stack_step(
+                params, x_t, (c, h), dropout_rate=dropout_rate, masks=masks,
+                deterministic=deterministic,
             )
-            cs.append(c)
-            hs_final.append(h)
-            inp = hs
-        return torch.stack(cs), torch.stack(hs_final)
-    if (
-        whole_sequence and not deterministic and kernel_dtype
-        and params[0]["wh"].shape[0] % 128 == 0 and _on_card(xs)
-    ):
-        if os.environ.get("NOVEL_VQA_FUSED2", "0") == "1" and len(params) == 2:
-            return fused2_encode_train(params, xs, mask, dropout_rate, generator, dp)
-        if os.environ.get("NOVEL_VQA_SEQ_TRAIN", "0") == "1":
-            return seq_encode_train(params, xs, mask, dropout_rate, generator, dp)
+            m = m_t[None, :, None] > 0
+            return torch.where(m, c_new, c), torch.where(m, h_new, h)
 
-    seq_len, batch, _ = xs.shape
-    if init_state is None:
-        rnn_size = params[0]["wh"].shape[0]
-        zeros = xs.new_zeros(len(params), batch, rnn_size)
-        init_state = (zeros, zeros)
-    c, h = init_state
-
-    def step(x_t, m_t, c, h, masks):
-        c_new, h_new = lstm_stack_step(
-            params, x_t, (c, h), dropout_rate=dropout_rate, masks=masks,
-            deterministic=deterministic,
-        )
-        m = m_t[None, :, None] > 0
-        return torch.where(m, c_new, c), torch.where(m, h_new, h)
-
-    cs_seq, hs_seq = [], []
-    for t in range(seq_len):
-        masks = step_masks(len(params), h[0], dropout_rate, generator, deterministic, dp)
-        if remat and not deterministic:
-            # every draw is from ``generator``, made above: no RNG state to keep
-            c, h = checkpoint(step, xs[t], mask[t], c, h, masks, use_reentrant=False,
-                              preserve_rng_state=False)
-        else:
-            c, h = step(xs[t], mask[t], c, h, masks)
+        cs_seq, hs_seq = [], []
+        for t in range(seq_len):
+            masks = step_masks(len(params), h[0], dropout_rate, generator, deterministic, dp)
+            if remat and not deterministic:
+                # every draw is from ``generator``, made above: no RNG state to keep
+                c, h = checkpoint(step, xs[t], mask[t], c, h, masks, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                c, h = step(xs[t], mask[t], c, h, masks)
+            if return_sequence:
+                cs_seq.append(c)
+                hs_seq.append(h)
         if return_sequence:
-            cs_seq.append(c)
-            hs_seq.append(h)
-    if return_sequence:
-        return (c, h), (torch.stack(cs_seq), torch.stack(hs_seq))
-    return c, h
+            return (c, h), (torch.stack(cs_seq), torch.stack(hs_seq))
+        return c, h

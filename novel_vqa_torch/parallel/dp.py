@@ -29,6 +29,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from novel_vqa_torch.core.profiling import span
 from novel_vqa_torch.ops.optim import GradientTransformation
 from novel_vqa_torch.parallel.mesh import DPGroup, dp_update
 
@@ -144,8 +145,9 @@ def make_vqa_dp_steps_scan(loss_fn: Callable, cfg, tx: GradientTransformation,
         device = data["tokens"].device
         losses = []
         for _ in range(n_steps):
-            qinds = torch.randint(0, n, (batch_size,), generator=generator, device=device)
-            batch = gather_batch(data, group.shard(qinds))
+            with span("train.sample"):
+                qinds = torch.randint(0, n, (batch_size,), generator=generator, device=device)
+                batch = gather_batch(data, group.shard(qinds))
             params, opt_state, loss = dp_update(
                 loss_fn, cfg, tx, group, params, opt_state, batch, generator)
             losses.append(loss)

@@ -52,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from novel_vqa_torch.core.device import resolve_device
+from novel_vqa_torch.core.profiling import span
 from novel_vqa_torch.core.tree import tree_leaves, tree_map, value_and_grad
 from novel_vqa_torch.ops.optim import GradientTransformation, apply_updates
 
@@ -190,11 +191,16 @@ def dp_update(loss_fn: Callable, cfg, tx: GradientTransformation, group: DPGroup
     """Forward and backward on this rank's ``batch``, the loss and the
     gradients reduced over the group (``reduce``: see
     :func:`make_dp_train_step`), then ``tx.update``: the clamp and the lr
-    schedule act on the reduced gradient, as on one device."""
+    schedule act on the reduced gradient, as on one device.  The tracer's
+    spans: ``train.forward`` and ``train.backward`` (``core/tree``),
+    ``train.reduce``, ``train.update``."""
     loss, grads = value_and_grad(loss_fn)(params, cfg, *batch, generator, dp=group)
-    loss, grads = group.reduce_tree((loss, grads), reduce)
-    updates, opt_state = tx.update(grads, opt_state, params)
-    return apply_updates(params, updates), opt_state, loss
+    with span("train.reduce"):
+        loss, grads = group.reduce_tree((loss, grads), reduce)
+    with span("train.update"):
+        updates, opt_state = tx.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+    return params, opt_state, loss
 
 
 def make_dp_train_step(

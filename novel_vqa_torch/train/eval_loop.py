@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from novel_vqa_torch.core.device import resolve_device
+from novel_vqa_torch.core.profiling import span
 from novel_vqa_torch.parallel.dp import DeferredFetch, fetch_chunked
 from novel_vqa_torch.parallel.mesh import DPGroup, make_dp_eval_indexed_step, make_dp_eval_step
 
@@ -69,7 +70,9 @@ def run_full_split(
     if hbm_resident:
         fn = arch.eval_predict_indexed if want == "predict" else arch.eval_step_indexed
         step = make_dp_eval_indexed_step(cfg, group, fn)
-        store = _upload(data.split_store(split), device)
+        host_store = data.split_store(split)
+        with span("eval.upload"):
+            store = _upload(host_store, device)
         arange = torch.arange(batch_size, device=device)
         # the final batch repeats the last row; outputs stay on the device
         outs = [step(params, store, torch.clamp(start + arange, max=n - 1))[1:]

@@ -46,11 +46,11 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from novel_vqa_torch.core.config import parse_config
 from novel_vqa_torch.core.device import resolve_device
 from novel_vqa_torch.core.h5 import update_h5, write_h5
+from novel_vqa_torch.core.profiling import span
 from novel_vqa_torch.data import images as I
 from novel_vqa_torch.models.vision import inception, vgg
 from novel_vqa_torch.models.vision.layers import bf16_storage_cast, fp32_exact
@@ -105,7 +105,7 @@ class Extractor:
         with torch.inference_mode(), fp32_exact():
             # this rank's rows, gathered after
             u8, missing = self.group.shard(u8), self.group.shard(missing)
-            with record_function("extract.prepro"):
+            with span("extract.prepro"):
                 x = self.prepro(u8, missing)
             out = self.net.apply(self.params, self.cfg, x, self.tap).float()
             return self.group.gather(out)

@@ -49,7 +49,7 @@ import torch
 from novel_vqa_torch.core.checkpoint import load_npz, save_npz, unflatten_like
 from novel_vqa_torch.core.config import parse_config
 from novel_vqa_torch.core.convert import ae_params_from_numpy, ae_params_to_numpy
-from novel_vqa_torch.core.profiling import nan_guard, trace
+from novel_vqa_torch.core.profiling import nan_guard, span, trace
 from novel_vqa_torch.data.corpus import CorpusLoader
 from novel_vqa_torch.eval.language_metrics import language_eval
 from novel_vqa_torch.models.seq import autoencoder as ae
@@ -183,8 +183,9 @@ def train_steps_scan(cfg: ae.AEConfig, tx, params, opt_state, train_rows, offset
     step = make_dp_step(cfg, tx, dp)
     losses = []
     for _ in range(n_steps):
-        idx, offset = scan_windows(offset, train_rows.shape[0], batch_size)
-        seq = train_rows[idx].t()  # (L, bs)
+        with span("train.sample"):
+            idx, offset = scan_windows(offset, train_rows.shape[0], batch_size)
+            seq = train_rows[idx].t()  # (L, bs)
         params, opt_state, loss = step(params, opt_state, generator, seq, imgs)
         losses.append(loss)
     return params, opt_state, offset, torch.stack(losses)
@@ -194,14 +195,16 @@ def train_steps_scan(cfg: ae.AEConfig, tx, params, opt_state, train_rows, offset
 def val_nll(cfg: ae.AEConfig, params, seq, imgs=None) -> torch.Tensor:
     """The deterministic fused NLL of one batch (step kernel)."""
     kwargs = {"imgs": imgs} if cfg.variant == "arch2" else {}
-    return ae.apply_nll(params, cfg, seq, deterministic=True, **kwargs)[0]
+    with span("ae.nll"):
+        return ae.apply_nll(params, cfg, seq, deterministic=True, **kwargs)[0]
 
 
 @torch.inference_mode()
 def greedy_tokens(cfg: ae.AEConfig, params, seq, imgs=None) -> torch.Tensor:
     """Encode one batch and decode it greedily (step kernel): (L, N)."""
-    state = ae.encode(params, cfg, seq, imgs if cfg.variant == "arch2" else None)
-    return ae.sample(params, cfg, state)[0]
+    with span("ae.greedy"):
+        state = ae.encode(params, cfg, seq, imgs if cfg.variant == "arch2" else None)
+        return ae.sample(params, cfg, state)[0]
 
 
 def decode_sequence(ix_to_word, seq: np.ndarray):

@@ -1,12 +1,10 @@
-"""The port's device-time layer (``novel_vqa_torch/core/device_bench.py``)
-against the JAX package's (``novel_vqa_tpu/core/device_bench.py``).
+"""The port's device-time layer (``novel_vqa_torch/core/device_bench.py``).
 
 The Chrome-trace parser is pinned against a synthetic trace shaped like
 ``torch.profiler``'s export (kernel events on the device with their stream,
 host ops and runtime calls beside them, a copy and a user annotation on the
 device); the live path runs on the CPU, whose trace has no device plane, as
-tests/test_device_bench.py's CPU smoke test; ``summarize`` and the analytic
-FLOPs must be the JAX functions' on the same inputs."""
+tests/test_device_bench.py's CPU smoke test."""
 
 import gzip
 import json
@@ -14,15 +12,7 @@ import json
 import pytest
 import torch
 
-from novel_vqa_tpu.core import device_bench as jdb
-from novel_vqa_tpu.models.seq import autoencoder as jae
-from novel_vqa_tpu.models.vqa import arch1 as jarch1
-from novel_vqa_tpu.models.vqa import arch2 as jarch2
-
 from novel_vqa_torch.core import device_bench as db
-from novel_vqa_torch.models.seq import autoencoder as tae
-from novel_vqa_torch.models.vqa import arch1 as tarch1
-from novel_vqa_torch.models.vqa import arch2 as tarch2
 
 
 def _kernel(name, dur, stream=7, device=0):
@@ -100,41 +90,6 @@ def test_measure_device_time_on_the_cpu_has_no_device_plane(tmp_path):
     assert (tmp_path / "trace.json").exists()
     assert not timing.summary.has_device_plane
     assert timing.module_seconds("") == (None, 0)
-
-
-SUMMARIZE_CASES = {
-    # device time present, an impossible wall clock beside it
-    "profiler_device_time": dict(flops_per_step=1e12, device_s=1.0, n_steps=100,
-                                 items_per_step=500, wall_s=0.001, peak=989e12),
-    # no device plane, a wall clock above the peak: refused
-    "untrusted": dict(flops_per_step=1e12, device_s=None, n_steps=10, items_per_step=1,
-                      wall_s=0.001, peak=989e12),
-    # no device plane, a plausible wall clock (a CPU run)
-    "wall_clock": dict(flops_per_step=1e6, device_s=None, n_steps=10, items_per_step=32,
-                       wall_s=2.0, peak=None),
-}
-
-
-@pytest.mark.parametrize("source", sorted(SUMMARIZE_CASES))
-def test_summarize_matches_jax(source):
-    kw = SUMMARIZE_CASES[source]
-    rec = db.summarize(**kw)
-    assert rec == jdb.summarize(**kw)
-    assert rec["timing_source"] == source
-
-
-def test_analytic_flops_match_jax():
-    """The reference configs' step FLOPs: arch1 (vocab 12782, 2x512),
-    arch2 (E = H = 512) and the text AE (vocab 20,000, E = H = 512)."""
-    j1, t1 = jarch1.Arch1Config(vocab_size=12782), tarch1.Arch1Config(vocab_size=12782)
-    assert db.analytic_flops_arch1_step(t1, 500, 16) == jdb.analytic_flops_arch1_step(j1, 500, 16)
-    j2, t2 = jarch2.Arch2Config(vocab_size=12782), tarch2.Arch2Config(vocab_size=12782)
-    assert db.analytic_flops_arch2_step(t2, 500, 16) == jdb.analytic_flops_arch2_step(j2, 500, 16)
-    for variant in ("text_nostart", "vqa_arch"):
-        ja = jae.AEConfig(vocab_size=20000, variant=variant, nhimage=4096)
-        ta = tae.AEConfig(vocab_size=20000, variant=variant, nhimage=4096)
-        assert (db.analytic_flops_text_ae_step(ta, 1000, 16)
-                == jdb.analytic_flops_text_ae_step(ja, 1000, 16))
 
 
 def test_peak_flops_by_name():
