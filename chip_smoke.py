@@ -37,8 +37,14 @@ Phases, each printing one JSON line:
      and, where timed, the device time per call from a CUDA graph of 20
      calls (``device_ms``) beside the time per call a Python caller sees
      (``kernel_ms``), the same for its plain version and the library
-     call; the build line reports its and the seq2 kernel's registers
-     and spills (a spill fails the run).  Then the gradients of
+     call; the build line reports its, the seq2 and the seq backward
+     kernels' registers and spills (a spill fails the run).  The seq
+     backward kernel (``FusedSeq``'s reverse scan) runs the train step's
+     layers on uniform and question lengths, the gaps masks and a small
+     shape (N=7, H=128) against its plain version, within GRAD_TOL of the
+     plain derivatives' largest entry, one launch a call; its rows report
+     its launch and the steps skipped and, where timed, its device time
+     beside its plain version's and its bound.  Then the gradients of
      ``ops/lstm_vjp.FusedSeq`` (the ``NOVEL_VQA_SEQ_TRAIN=1`` route)
      against autograd through the plain version on the card, within
      GRAD_TOL of each gradient's largest entry, at the train slice's
@@ -59,12 +65,13 @@ Phases, each printing one JSON line:
      loss and gradients of one batch through each training route against
      the default route (the f32 per-step cell): ``NOVEL_VQA_FUSED2=1``
      (the seq2 kernel, bf16 storage) and ``NOVEL_VQA_SEQ_TRAIN=1`` (the
-     seq kernel per layer), each within its ``ROUTE_TOL``; each route's
-     launches per loss and gradients;
+     seq kernel and the seq backward kernel per layer), each within its
+     ``ROUTE_TOL``; each route's launches per loss and gradients;
   8. train slice: the train CLI at the reference width on a synthetic
      train/val/test split, ``TRAIN_RUNS``: the default and FUSED2 routes
      at ``--steps_per_dispatch`` 1 and 10, SEQ_TRAIN at 1: per iteration
-     one seq2 launch under FUSED2, L seq launches under SEQ_TRAIN,
+     one seq2 launch under FUSED2, L seq and L seq backward launches
+     under SEQ_TRAIN,
      validation's seq launches on every route, every loss finite; the
      train-step time per
      route (CUDA events), its device time by kernel and its device
@@ -270,6 +277,8 @@ SOURCES = ("lstm.cu", "lstm2.cu")  # csrc/, built in parallel
 SOURCE = "novel_vqa_torch/csrc/lstm.cu"  # seq and step kernels
 SEQ2_SOURCE = "novel_vqa_torch/csrc/lstm2.cu"
 SEQ_REPLACES = "novel_vqa_tpu/ops/pallas_lstm.py:173 (_seq_kernel)"
+SEQ_BWD_REPLACES = ("no TPU kernel: the reverse scan of novel_vqa_tpu/ops/pallas_lstm.py:279-374 "
+                    "(_seq_bwd, XLA)")
 STEP_REPLACES = "novel_vqa_tpu/ops/pallas_lstm.py:40 (_fused_step_kernel)"
 SEQ2_REPLACES = "novel_vqa_tpu/ops/pallas_lstm2.py:56 (_seq2_kernel)"
 
@@ -770,13 +779,72 @@ def grad_case(N, In, H_, mask_kind, gen, dev):
     from novel_vqa_torch.ops.lstm_vjp import FusedSeq
     from novel_vqa_torch.utils.selfcheck import grad_rel_errors, seq_loss
 
+    before = K.lstm_seq_backward.launches
     rel = grad_rel_errors(FusedSeq.apply, K.lstm_seq_plain, seq_inputs(N, In, H_, mask_kind, gen, dev),
                           (0, 2, 3, 4), seq_loss)
     row = {"function": "FusedSeq", "N": N, "In": In, "H": H_, "mask": mask_kind,
            "grad_rel_err": dict(zip(("xs", "wx", "wh", "b"), rel)), "max_grad_rel_err": max(rel),
-           "tol": GRAD_TOL}
+           "tol": GRAD_TOL, "launches_backward": K.lstm_seq_backward.launches - before}
     if not max(rel) <= GRAD_TOL:
         raise AssertionError(f"gradients through FusedSeq: {row}")
+    return row
+
+
+# the seq backward kernel's cases: (N, In, H, mask, timed); the first two are
+# the train step's layers (In = E, then H), whose times the kernel line
+# sums, then both on question lengths, the gaps masks (interior steps no row
+# takes) and a small odd shape
+SEQ_BWD_CASES = ((BATCH, E, H, "uniform", True), (BATCH, H, H, "uniform", True),
+                 (BATCH, E, H, "eval", True), (BATCH, H, H, "eval", True),
+                 (BATCH, H, H, "gaps", False), (7, 24, 128, "uniform", False), (7, 24, 128, "gaps", False))
+
+
+def seq_bwd_inputs(K, N, In, H_, mask_kind, gen, dev):
+    """The seq backward kernel's inputs as ``FusedSeq``'s backward makes
+    them: the gate pre-activations recomputed from the seq kernel's hidden
+    sequence on seq_inputs, and cotangents of hs, h and c."""
+    xs, mask, wx, wh, b = seq_inputs(N, In, H_, mask_kind, gen, dev)
+    _, _, hs = K.lstm_seq(xs, mask, wx, wh, b)
+    h_prev = torch.cat([hs.new_zeros(1, N, H_), hs[:-1]])
+    gates = (xs.reshape(T * N, In) @ wx + h_prev.reshape(T * N, H_) @ wh + b).reshape(T, N, 4 * H_)
+    return gates, mask, wh, uniform(gen, dev, T, N, H_), uniform(gen, dev, N, H_), uniform(gen, dev, N, H_)
+
+
+def seq_bwd_case(K, N, In, H_, mask_kind, timed, gen, dev):
+    """The seq backward kernel against its plain version: the largest
+    difference over the plain gate derivatives' largest entry, within the
+    ``FusedSeq`` check's GRAD_TOL; one launch a call."""
+    args = seq_bwd_inputs(K, N, In, H_, mask_kind, gen, dev)
+    gates, mask, rest = args[0], args[1], args[1:]
+    before = K.lstm_seq_backward.launches
+    got = K.lstm_seq_backward(gates.clone(), *rest)
+    torch.cuda.synchronize()
+    ref = K.lstm_seq_backward_plain(*args)
+    err = float((got - ref).abs().max())
+    launch = one_wave(K.lstm_seq_backward_launch_info(N, H_, dev))
+    row = {"kernel": "lstm_seq_backward", "N": N, "T": T, "In": In, "H": H_, "mask": mask_kind,
+           "main": timed and mask_kind == "uniform", "max_abs_err": err,
+           "max_rel_err": err / float(ref.abs().max()), "tol": GRAD_TOL,
+           "launches": K.lstm_seq_backward.launches - before, "launch": launch,
+           "steps_skipped": steps_skipped(mask, launch["rows_per_cluster"])}
+    if not row["max_rel_err"] <= GRAD_TOL or row["launches"] != 1:
+        raise AssertionError(f"lstm_seq_backward N={N} In={In} H={H_} mask={mask_kind}: {row}")
+    if timed:
+        # the products at active (row, step) pairs past step 0 (step 0's
+        # would give the initial state's gradient, which nothing reads)
+        flops = 2.0 * 4 * H_ * H_ * float(mask[1:].sum())
+        nbytes = 4.0 * (2 * gates.numel() + sum(a.numel() for a in rest))
+        work = gates.clone()  # overwritten by every call; its values stay finite
+
+        def kernel():
+            K.lstm_seq_backward(work, *rest)
+
+        def plain():
+            K.lstm_seq_backward_plain(*args)
+
+        row.update(kernel_ms=time_ms(kernel), plain_ms=time_ms(plain),
+                   device_ms=graph_device_ms(kernel), plain_device_ms=graph_device_ms(plain))
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
     return row
 
 
@@ -1075,8 +1143,8 @@ def run_route_agreement(K, K2, dev):
     # layer; the default route's plain cell none
     expected = {"default": {}, "fused2": {"lstm_seq2": 1}, "seq_train": {"lstm_seq": L}}
 
-    res, out = {}, {"launches": {}, "loss": {}, "loss_rel_err": {}, "grad_rel_err_by_block": {},
-                    "tol": ROUTE_TOL}
+    res, out = {}, {"launches": {}, "launches_backward": {}, "loss": {}, "loss_rel_err": {},
+                    "grad_rel_err_by_block": {}, "tol": ROUTE_TOL}
     for route in ROUTES:
         with training_route(route):
             zero_launches(K, K2)
@@ -1086,6 +1154,11 @@ def run_route_agreement(K, K2, dev):
         want = {"lstm_seq": 0, "lstm_step": 0, "lstm_seq2": 0, **expected[route]}
         if launches != want:
             raise AssertionError(f"route {route}: launches {launches}, expected {want}")
+        # the seq backward kernel once per layer on the SEQ_TRAIN route
+        backward = K.lstm_seq_backward.launches
+        if backward != (L if route == "seq_train" else 0):
+            raise AssertionError(f"route {route}: {backward} seq backward launches")
+        out["launches_backward"][route] = backward
         res[route] = (float(loss), grads)
         out["launches"][route] = launches
         out["loss"][route] = float(loss)
@@ -1176,10 +1249,15 @@ def run_train_slice(K, K2, dev):
                         "lstm_step": 0, "lstm_seq2": TRAIN_ITERS if route == "fused2" else 0}
             if launches != expected:
                 raise AssertionError(f"train {route} spd={spd}: launches {launches}, expected {expected}")
+            # and under SEQ_TRAIN the seq backward kernel once per layer
+            backward = K.lstm_seq_backward.launches
+            if backward != (L * TRAIN_ITERS if route == "seq_train" else 0):
+                raise AssertionError(f"train {route} spd={spd}: {backward} seq backward launches")
             emas = loss_emas(ckpt)
             if len(emas) != TRAIN_ITERS // 10 or not all(np.isfinite(emas)):
                 raise AssertionError(f"train {route} spd={spd}: loss EMAs {emas}")
-            out["runs"][f"{route}_spd{spd}"] = {"wall_s": wall, "launches": launches, "loss_ema": emas}
+            out["runs"][f"{route}_spd{spd}"] = {"wall_s": wall, "launches": launches,
+                                                "launches_backward": backward, "loss_ema": emas}
 
         res = os.path.join(tmp, "result")
         K.lstm_seq.launches = 0
@@ -2922,6 +3000,7 @@ def kernel_launches(K, K2) -> dict:
 
 def zero_launches(K, K2) -> None:
     K.lstm_seq.launches = K.lstm_step.launches = K2.lstm_seq2.launches = 0
+    K.lstm_seq_backward.launches = 0
 
 
 def step_record(step, dev) -> dict:
@@ -3255,12 +3334,14 @@ def main(argv=None) -> int:
     # empty report means the libraries were built before this run
     step_ptxas = ptxas_report(ptxas["lstm.cu"], "lstm_step_kernel")
     seq2_ptxas = ptxas_report(ptxas["lstm2.cu"], "lstm_seq2_kernel")
-    for name, report in (("step", step_ptxas), ("seq2", seq2_ptxas)):
+    bwd_ptxas = ptxas_report(ptxas["lstm.cu"], "lstm_seq_backward_kernel")
+    for name, report in (("step", step_ptxas), ("seq2", seq2_ptxas), ("seq backward", bwd_ptxas)):
         if any(v.get("spill_bytes") != 0 for v in report):
             raise AssertionError(f"the {name} kernel spills: {report}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
           "step_kernel_ptxas": step_ptxas or "not built in this run",
-          "seq2_kernel_ptxas": seq2_ptxas or "not built in this run"})
+          "seq2_kernel_ptxas": seq2_ptxas or "not built in this run",
+          "seq_backward_kernel_ptxas": bwd_ptxas or "not built in this run"})
 
     if opts.seq2_mutants:
         out = run_seq2_mutants(K2, dev)
@@ -3275,7 +3356,8 @@ def main(argv=None) -> int:
     seq_rows = [seq_case(K, *case, gen, dev) for case in SEQ_CASES]
     step_rows = [step_case(K, *case, gen, dev) for case in STEP_CASES]
     seq2_rows = [seq2_case(K2, *case, gen, dev) for case in SEQ2_CASES]
-    for row in seq_rows + step_rows + seq2_rows:
+    bwd_rows = [seq_bwd_case(K, *case, gen, dev) for case in SEQ_BWD_CASES]
+    for row in seq_rows + step_rows + seq2_rows + bwd_rows:
         emit({"phase": "kernel_check", **row})
     grad_rows = [grad_case(*case, gen, dev) for case in SEQ_GRAD_CASES]
     for row in grad_rows:
@@ -3286,7 +3368,8 @@ def main(argv=None) -> int:
     emit({"phase": "slice", **slice_out})
     step_out = run_step_route(K, dev, gen)
     emit({"phase": "step_route", **step_out})
-    emit({"phase": "route_agreement", **run_route_agreement(K, K2, dev)})
+    route_out = run_route_agreement(K, K2, dev)
+    emit({"phase": "route_agreement", **route_out})
     train_out = run_train_slice(K, K2, dev)
     emit({"phase": "train_slice", **train_out})
 
@@ -3331,9 +3414,8 @@ def main(argv=None) -> int:
             "plain_ms": sum(r["plain_ms"] for r in main),
             "bound_ms": sum(r["bound_ms"] for r in main),
             "bound_by": main[0]["bound_by"],
-            "library_ms": sum(r["library_ms"] for r in main),
         }
-        for key in ("device_ms", "plain_device_ms", "library_device_ms"):
+        for key in ("library_ms", "device_ms", "plain_device_ms", "library_device_ms"):
             if key in main[0]:
                 out[key] = sum(r[key] for r in main)
         out["shapes"] = [{k: r[k] for k in ("N", "In", "H", "mask", "keep", "kernel_ms", "plain_ms", "bound_ms",
@@ -3347,10 +3429,15 @@ def main(argv=None) -> int:
         entry("lstm_step", step_rows, step_out["launches"]["lstm_step"], STEP_REPLACES),
         entry("lstm_seq2", seq2_rows, train_out["runs"]["fused2_spd1"]["launches"]["lstm_seq2"],
               SEQ2_REPLACES, SEQ2_SOURCE),
+        entry("lstm_seq_backward", bwd_rows,
+              train_out["runs"]["seq_train_spd1"]["launches_backward"], SEQ_BWD_REPLACES),
     ]
     # the SEQ_TRAIN route: the train CLI's seq launches (validation
     # included) and FusedSeq's gradient checks
     kernels[0]["launches_seq_train"] = train_out["runs"]["seq_train_spd1"]["launches"]["lstm_seq"]
+    kernels[0]["launches_seq_train_backward"] = train_out["runs"]["seq_train_spd1"]["launches_backward"]
+    kernels[3]["launches_route_agreement"] = route_out["launches_backward"]["seq_train"]
+    kernels[3]["launches_grad_check"] = sum(r["launches_backward"] for r in grad_rows)
     kernels[0]["grad_max_rel_err"] = max(r["max_grad_rel_err"] for r in grad_rows)
     kernels[0]["grad_tol"] = GRAD_TOL
     kernels[2]["products"] = "mma.sync m16n8k16 bf16, f32 accumulate"

@@ -1,12 +1,12 @@
-// Launch plans of the thread-block cluster kernels (lstm.cu's seq kernel,
-// lstm2.cu's seq2 kernel): one cluster of `cluster` CTAs per tile of rows,
-// clusters independent of each other.  The plan takes the fewest rows per
-// tile (a multiple of the kernel's granularity) whose clusters the card
-// holds at once, within the rows the kernel allows and the shared memory a
-// block may use; past those limits, the most rows that fit them.  Plans are
-// made once per (device, N, In, H) and cached, and the kernel's dynamic
-// shared memory attribute is raised only when a shape needs more, so a
-// launch after the first at a shape makes no runtime query.
+// Launch plans of the thread-block cluster kernels (lstm.cu's seq and seq
+// backward kernels, lstm2.cu's seq2 kernel): one cluster of `cluster` CTAs
+// per tile of rows, clusters independent of each other.  The plan takes the
+// fewest rows per tile (a multiple of the kernel's granularity) whose
+// clusters the card holds at once, within the rows the kernel allows and the
+// shared memory a block may use; past those limits, the most rows that fit
+// them.  Plans are made once per (device, N, In, H) and cached, and the
+// kernel's dynamic shared memory attribute is raised only when a shape needs
+// more, so a launch after the first at a shape makes no runtime query.
 
 #pragma once
 
@@ -29,12 +29,14 @@ struct ClusterPlan {
 
 // What a tile costs one CTA of a kernel at one shape.  Rows per tile are a
 // multiple of `granularity` and at most `rows_max`; each row takes
-// `row_bytes` of dynamic shared memory, the CTA at least `min_smem`.
+// `row_bytes` of dynamic shared memory on top of `fixed_bytes`, the CTA at
+// least `min_smem`.
 struct TileCost {
   int granularity;
   int rows_max;
   size_t row_bytes;
   size_t min_smem;
+  size_t fixed_bytes = 0;
 };
 
 template <typename Kernel>
@@ -109,7 +111,9 @@ class ClusterPlanner {
     const int max_threads = fa.maxThreadsPerBlock / 32 * 32;
     const TileCost c = cost_(In, H);
     const int g = c.granularity;
-    int r_max = (int)((size_t)smem_optin / c.row_bytes) / g * g;
+    const size_t room =
+        (size_t)smem_optin > c.fixed_bytes ? smem_optin - c.fixed_bytes : 0;
+    int r_max = (int)(room / c.row_bytes) / g * g;
     if (c.rows_max < r_max) r_max = c.rows_max;
     if (threads_(In, H, g) <= max_threads)
       while (r_max > g && threads_(In, H, r_max) > max_threads) r_max -= g;
@@ -121,7 +125,8 @@ class ClusterPlanner {
       plan->grid = dim3(((N + R - 1) / R) * cluster_);
       plan->block = dim3(threads >= max_threads ? max_threads
                                                 : (threads + 31) / 32 * 32);
-      plan->smem = c.row_bytes * R < c.min_smem ? c.min_smem : c.row_bytes * R;
+      const size_t need = c.fixed_bytes + c.row_bytes * R;
+      plan->smem = need < c.min_smem ? c.min_smem : need;
       cudaError_t e = allow_smem(dev, plan->smem);
       if (e != cudaSuccess) return e;
       cudaLaunchAttribute attr;

@@ -1,8 +1,8 @@
 // LSTM kernels for Hopper (sm_90a), fp32, built with nvcc into a shared
 // library with a plain C interface (see novel_vqa_torch/kernels/build.py).
 //
-// Both kernels compute the fused-gate LSTM cell of the JAX package (the cell
-// is in cell.cuh; b = bx + bh):
+// The seq and step kernels compute the fused-gate LSTM cell of the JAX
+// package (the cell is in cell.cuh; b = bx + bh):
 //
 //     gates = x @ Wx + h @ Wh + b;  c', h' = cell(gates, c)
 //
@@ -10,8 +10,9 @@
 // hidden units for a few batch rows in registers, so the cell update runs
 // in the epilogue and the (N, 4H) gate matrix never reaches device memory.
 // Each output is summed as the bias, then x @ Wx over k = 0..In-1, then
-// h @ Wh over k = 0..H-1, one fmaf each, in order.  All arithmetic is fp32
-// FMA (no tensor cores, no TF32).
+// h @ Wh over k = 0..H-1, one fmaf each, in order.  The seq backward kernel
+// runs the reverse scan of the seq kernel's gradient (training).  All
+// arithmetic is fp32 FMA (no tensor cores, no TF32).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -41,6 +42,16 @@ constexpr int kSeqMaxThreads = 640;
 // card reserves per block: an SM holds one seq CTA, so a cluster's CTAs
 // land on as many SMs and the card holds a fixed number of clusters.
 constexpr size_t kSeqMinSmem = 116 * 1024;
+// Seq backward kernel: threads per CTA at most (the seq kernel's), the floats
+// of one stage of its weight ring and the stages, and the widest H it takes
+// (a multiple of 128: its threads own 4 units each of all H for 4 rows, and
+// a stage holds at least 4 rows of Wh^T).  Its rows per cluster are chosen
+// at launch (bwd_planner), as the seq kernel's.
+constexpr int kBwdMaxThreads = kSeqMaxThreads;
+constexpr int kBwdRowsPerThread = 4;
+constexpr int kBwdStageFloats = 8192;
+constexpr int kBwdStages = 3;
+constexpr int kBwdMaxH = 2048;
 // Step kernel: a CTA's tile of Rows batch rows by 32 hidden units (all four
 // gates of each unit), RT batch rows per thread (which owns 2 units), BK k
 // per pipeline stage, and Stages stages in its cp.async ring.
@@ -553,6 +564,272 @@ __global__ void __launch_bounds__(T::kThreads, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Seq backward kernel.  Replaces no TPU kernel: it is the reverse half of the
+// JAX package's _seq_bwd (novel_vqa_tpu/ops/pallas_lstm.py:279-374), a scan
+// that XLA runs there; its plain version (kernels/lstm.py,
+// lstm_seq_backward_plain) issues some 30 small operations a step from
+// Python.  For a tile of batch rows it rebuilds the cell states from the gate
+// pre-activations (T, N, 4H) and the mask, then carries (dh, dc) from the
+// last step to the first, writing each step's gate derivatives dgates
+// (T, N, 4H) over the pre-activations:
+//
+//     dh_t = dhs_t + dh;  dh' = m dh_t;  dc' = m dc + dh' o (1 - tanh(c_t)^2)
+//     dgates_t = [dc' g i(1-i), dc' c_{t-1} f(1-f), dh' tanh(c_t) o(1-o),
+//                 dc' i (1-g^2)]
+//     dh <- dgates_t @ Wh^T + (1 - m) dh_t;  dc <- dc' f + (1 - m) dc
+//
+// The product of step 0 is skipped: it would give the gradient of the zero
+// initial state, which nothing reads.
+//
+// Bound on the H100: operations.  At T=16, N=500, H=512 the products are up
+// to 15.7 GFLOP of fp32 FMA (0.23 ms at 67 TFLOP/s) against ~150 MB of
+// traffic (0.045 ms); the elementwise work is small beside them.
+//
+// Design: as the seq kernel, a cluster of C CTAs owns a tile of R rows for
+// all steps, and CTA q owns hidden units [q U, (q + 1) U), U = H / C, with
+// all four gate columns of each, so the cell's backward and the rebuild of
+// c run thread-locally (four (row, unit) elements per thread, their carries
+// in registers).  The product is split by CTA along its reduction: CTA q
+// multiplies its own 4U gate derivatives, kept in shared memory, by the
+// matching 4U rows of Wh^T, giving a partial dh for all H units of its
+// rows; each thread owns RT rows by KT units of it.  Each CTA then pushes
+// the partials of CTA p's units into p's shared memory (distributed shared
+// memory), one barrier.cluster per step orders them, and each CTA sums the
+// C partials of its own units in rank order.  Exchanging the gate
+// derivatives instead would take 4H floats a row in every CTA, twice over
+// for the double buffer: more than a CTA's shared memory at R = 20.
+//
+// - Weights.  A CTA's 4U rows of Wh^T (1 MB at H=512) do not fit in shared
+//   memory, so they stream from L2 every step through a ring of S stages
+//   of BK rows (BK H = 8192 floats, BK <= 32), filled by 16-byte cp.async
+//   copies S - 1 stages ahead; a stage is one contiguous block of Wh^T.
+//   Each weight is read from L2 once per tile and step, and once from
+//   shared memory per row group (float4 reads of KT neighbouring units,
+//   the rows' derivatives broadcast to the warp).  The weights are the
+//   same every step, so the first stages of the next step's product are
+//   fetched as soon as the ring is free, during the cell's backward and
+//   the exchange.
+// - Steps.  A step on which no row of the tile is active gives zero
+//   dgates, and dh and dc pass through (dh gains dhs_t); its product and
+//   exchange are skipped.  The CTAs of a cluster hold the same rows and
+//   decide alike, so the barrier stays uniform.  Right-aligned masks skip
+//   a tile's steps before its longest row.
+// - Memory.  The rebuilt c_{t-1} goes to a (T, N, H) scratch in device
+//   memory (written once, read once); the gate derivatives go over the
+//   pre-activations, which the reverse scan has read by then.
+//
+// Each dh sums, over its CTA's 4U columns in order, one fmaf each; then the
+// C partial sums in rank order, then (1 - m) dh_t.  All arithmetic is fp32
+// (no tensor cores, no TF32), in a fixed order.
+//
+// Shared memory: S BK H floats for the ring, then per row 4U floats of
+// gate derivatives ([column][row]) and 2 C U floats of partials (double
+// buffered): 96 KB + 12 KB per row at H = 512, 216 KB at R = 20.
+// ---------------------------------------------------------------------------
+template <int C, int RT, int KT, int S>
+__global__ void __launch_bounds__(kBwdMaxThreads, 1)
+    lstm_seq_backward_kernel(float* gates, const float* __restrict__ mask,
+                             const float* __restrict__ wh_t,
+                             const float* __restrict__ dhs,
+                             const float* __restrict__ dh_fin,
+                             const float* __restrict__ dc_fin,
+                             float* __restrict__ c_seq, int T, int N, int H,
+                             int R, int BK) {
+  static_assert(RT % 4 == 0 && KT == 4, "the tile is read and pushed as float4");
+  static_assert(KT == C, "a thread's elements share their unit");
+  constexpr int E = RT;  // (row, unit) elements per thread: R U / P
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int U = H / C;
+  const int j0 = rank * U;
+  const int n0 = (blockIdx.x / C) * R;
+  const int tid = threadIdx.x;
+  const int P = (H / KT) * (R / RT);  // threads that own a product tile
+  const bool worker = tid < P;
+  const int ns = H / BK;  // stages per product (4U = H rows of Wh^T)
+  const size_t G4 = 4 * (size_t)H;
+
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);  // S stages of BK x H
+  float* dg_s = w_s + S * kBwdStageFloats;       // 4U x R, [column][row]
+  float* x_s = dg_s + (size_t)H * R;  // 2 x C x R x U, [buffer][rank][row][unit]
+
+  // stage s of the product: the Wh^T rows of local columns s BK .. (local
+  // column q U + u is gate column q H + j0 + u) into its slot of the ring
+  auto load_stage = [&](int s) {
+    float* dst = w_s + (s % S) * kBwdStageFloats;
+    const int lc0 = s * BK;
+    const int q = lc0 / U;
+    const float* src = wh_t + ((size_t)q * H + j0 + lc0 - q * U) * H;
+    for (int e = 4 * tid; e < BK * H; e += 4 * blockDim.x)
+      cp_async(dst + e, src + e, true, true);
+  };
+  auto prefetch = [&]() {
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+      if (s < ns) load_stage(s);
+      cp_async_commit();  // one group per stage, empty ones too
+    }
+  };
+  auto tile_active = [&](int t) {
+    bool any = false;
+    for (int r = tid; r < R && n0 + r < N; r += blockDim.x)
+      any |= mask[(size_t)t * N + n0 + r] > 0.0f;
+    return __syncthreads_or(any) != 0;
+  };
+
+  // this thread's elements: (row er0 + i R / RT, own unit eu), i < E
+  const int eu = tid % U;
+  const int er0 = tid / U;
+  const int rstep = R / RT;
+  auto er = [&](int i) { return er0 + i * rstep; };
+  auto ev = [&](int i) { return worker && n0 + er(i) < N; };
+  prefetch();  // the first product's stages land during the rebuild
+
+  // 1. the cell states: c_{t-1} of each computed step into c_seq
+  float dh[E], dc[E], dhp[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) dc[i] = dhp[i] = 0.0f;  // dc holds c here
+  for (int t = 0; t < T; ++t) {
+    if (!tile_active(t)) continue;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      if (!ev(i)) continue;
+      const size_t o = (size_t)t * N + n0 + er(i);
+      const int j = j0 + eu;
+      const float* z = gates + o * G4 + j;
+      const float ig = sigmoidf_(z[0]);
+      const float fg = sigmoidf_(z[H]);
+      const float gg = tanhf(z[3 * H]);
+      const float cn = fg * dc[i] + ig * gg;
+      c_seq[o * H + j] = dc[i];
+      if (mask[o] > 0.0f) dc[i] = cn;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const size_t o = (size_t)(n0 + er(i)) * H + j0 + eu;
+    dh[i] = ev(i) ? dh_fin[o] : 0.0f;
+    dc[i] = ev(i) ? dc_fin[o] : 0.0f;
+  }
+  // every CTA of the cluster runs before a peer stores into its memory
+  cluster.sync();
+
+  // 2. the reverse scan
+  int buf = 0;  // the partials' buffer the next computed step fills
+  for (int t = T - 1; t >= 0; --t) {
+    if (!tile_active(t)) {
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        if (!ev(i)) continue;
+        const size_t o = (size_t)t * N + n0 + er(i);
+        const int j = j0 + eu;
+        dh[i] = dhs[o * H + j] + dh[i];
+        float* z = gates + o * G4 + j;
+        z[0] = z[H] = z[2 * H] = z[3 * H] = 0.0f;
+      }
+      continue;
+    }
+    // the cell's backward, thread-local
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      if (!worker) continue;
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (ev(i)) {
+        const size_t o = (size_t)t * N + n0 + er(i);
+        const int j = j0 + eu;
+        float* z = gates + o * G4 + j;
+        const float m = mask[o];
+        const float ig = sigmoidf_(z[0]);
+        const float fg = sigmoidf_(z[H]);
+        const float og = sigmoidf_(z[2 * H]);
+        const float gg = tanhf(z[3 * H]);
+        const float cp = c_seq[o * H + j];
+        const float tc = tanhf(fg * cp + ig * gg);
+        const float dh_t = dhs[o * H + j] + dh[i];
+        const float dc_t = dc[i];
+        const float dh_new = m * dh_t;
+        const float dc_new = m * dc_t + dh_new * og * (1.0f - tc * tc);
+        d[0] = dc_new * gg * ig * (1.0f - ig);
+        d[1] = dc_new * cp * fg * (1.0f - fg);
+        d[2] = dh_new * tc * og * (1.0f - og);
+        d[3] = dc_new * ig * (1.0f - gg * gg);
+        z[0] = d[0];
+        z[H] = d[1];
+        z[2 * H] = d[2];
+        z[3 * H] = d[3];
+        dhp[i] = (1.0f - m) * dh_t;
+        dc[i] = dc_new * fg + (1.0f - m) * dc_t;
+      }
+      if (t > 0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dg_s[(size_t)(q * U + eu) * R + er(i)] = d[q];
+      }
+    }
+    if (t == 0) break;  // the initial state's gradient is not needed
+    __syncthreads();    // the tile's gate derivatives are in dg_s
+
+    // the partial product over this CTA's columns, for all H units
+    const int kq = worker ? tid % (H / KT) : 0;
+    const int r0 = worker ? tid / (H / KT) * RT : 0;
+    float acc[RT][KT];
+#pragma unroll
+    for (int e = 0; e < RT; ++e)
+#pragma unroll
+      for (int k = 0; k < KT; ++k) acc[e][k] = 0.0f;
+    for (int s = 0; s < ns; ++s) {
+      cp_async_wait<S - 2>();  // this thread's copies of stage s landed
+      __syncthreads();  // ... every thread's, and stage s - 1 is free
+      if (s + S - 1 < ns) load_stage(s + S - 1);
+      cp_async_commit();
+      if (!worker) continue;
+      const float* ws = w_s + (s % S) * kBwdStageFloats + kq * KT;
+      const float* ds = dg_s + (size_t)s * BK * R + r0;
+#pragma unroll 4
+      for (int cc = 0; cc < BK; ++cc) {
+        const float4 w = *reinterpret_cast<const float4*>(ws + cc * H);
+        const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int v = 0; v < RT / 4; ++v) {
+          const float4 a = *reinterpret_cast<const float4*>(ds + cc * R + 4 * v);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int k = 0; k < KT; ++k)
+              acc[4 * v + e][k] = fmaf(av[e], wv[k], acc[4 * v + e][k]);
+        }
+      }
+    }
+    if (worker) {
+      // units kq KT .. belong to CTA p; into its buffer's slot of this rank
+      const int k0 = kq * KT;
+      const int p = k0 / U;
+      float* dst = x_s + (((size_t)buf * C + rank) * R + r0) * U + (k0 - p * U);
+      float4* peer = reinterpret_cast<float4*>(cluster.map_shared_rank(dst, p));
+#pragma unroll
+      for (int e = 0; e < RT; ++e)
+        peer[e * U / 4] = make_float4(acc[e][0], acc[e][1], acc[e][2], acc[e][3]);
+    }
+    // every CTA's partials land before any CTA sums them, and every read of
+    // dg_s and of the ring is done before either is written again
+    cluster.sync();
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      if (!worker) continue;
+      const float* xb = x_s + (size_t)buf * C * R * U + er(i) * U + eu;
+      float sum = xb[0];
+#pragma unroll
+      for (int p = 1; p < C; ++p) sum += xb[(size_t)p * R * U];
+      dh[i] = sum + dhp[i];
+    }
+    buf ^= 1;
+    if (t > 1) prefetch();
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
 // The seq kernel as launched (host code).
 auto seq_kernel() {
   return &lstm_seq_kernel<kSeqCluster, kSeqRowsPerThread, kSeqUnroll>;
@@ -577,6 +854,40 @@ int seq_threads(int /*In*/, int H, int rows) {
 
 ClusterPlanner<decltype(seq_kernel())> seq_planner(seq_kernel(), kSeqCluster,
                                                    seq_cost, seq_threads);
+
+// The seq backward kernel as launched, its tile's cost at (In, H) (the ring,
+// then per row the gate derivatives and the double-buffered partials; In
+// does not enter) and its threads: one per kBwdRowsPerThread rows by 4
+// units of all H.
+auto bwd_kernel() {
+  return &lstm_seq_backward_kernel<kSeqCluster, kBwdRowsPerThread, 4, kBwdStages>;
+}
+
+TileCost bwd_cost(int /*In*/, int H) {
+  TileCost c;
+  c.granularity = kBwdRowsPerThread;
+  c.rows_max = INT_MAX;
+  c.row_bytes = (size_t)3 * H * sizeof(float);
+  c.min_smem = kSeqMinSmem;
+  c.fixed_bytes = (size_t)kBwdStages * kBwdStageFloats * sizeof(float);
+  return c;
+}
+
+// Wh^T rows per stage of the ring at H: a power of two, at most 32, so it
+// divides U = H / 4 (a multiple of 32) and a stage's rows lie within one
+// gate's block, contiguous.
+int bwd_stage_rows(int H) {
+  int bk = 32;
+  while (bk * H > kBwdStageFloats) bk /= 2;
+  return bk;
+}
+
+int bwd_threads(int /*In*/, int H, int rows) {
+  return H / 4 * (rows / kBwdRowsPerThread);
+}
+
+ClusterPlanner<decltype(bwd_kernel())> bwd_planner(bwd_kernel(), kSeqCluster,
+                                                   bwd_cost, bwd_threads);
 
 // The step kernel's launch: the kernel (tile and copy width), grid, threads,
 // dynamic shared memory, and the tile's shape and the card's SMs to report.
@@ -679,6 +990,42 @@ int nvqa_lstm_seq_forward(const float* xs, const float* mask, const float* wx,
 int nvqa_lstm_seq_launch_info(int N, int In, int H, int* info) {
   ClusterPlan plan;
   cudaError_t err = seq_planner.plan(N, In, H, &plan);
+  if (err != cudaSuccess) return (int)err;
+  const int out[6] = {kSeqCluster, plan.rows, (int)plan.grid.x,
+                      plan.max_clusters, (int)plan.block.x, (int)plan.smem};
+  for (int i = 0; i < 6; ++i) info[i] = out[i];
+  return 0;
+}
+
+// The seq backward kernel over one layer: `gates` (T, N, 4H) holds the gate
+// pre-activations on entry and the gate derivatives on return; `wh_t` is
+// Wh^T (4H, H); `c_seq` (T, N, H) is scratch.  H must be a multiple of 128,
+// at most kBwdMaxH (cudaErrorInvalidValue otherwise).
+int nvqa_lstm_seq_backward(float* gates, const float* mask, const float* wh_t,
+                           const float* dhs, const float* dh_fin,
+                           const float* dc_fin, float* c_seq, int T, int N,
+                           int H, void* stream) {
+  if (H % 128 != 0 || H > kBwdMaxH) return (int)cudaErrorInvalidValue;
+  ClusterPlan plan;
+  cudaError_t err = bwd_planner.plan(N, 0, H, &plan);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config =
+      bwd_planner.config(plan, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&config, bwd_kernel(), gates, mask, wh_t, dhs,
+                           dh_fin, dc_fin, c_seq, T, N, H, plan.rows,
+                           bwd_stage_rows(H));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The seq backward kernel's launch at (N, H), launching nothing; In is not
+// read.  info[0..5] as nvqa_lstm_seq_launch_info's.
+int nvqa_lstm_seq_backward_launch_info(int N, int In, int H, int* info) {
+  (void)In;
+  if (H % 128 != 0 || H > kBwdMaxH) return (int)cudaErrorInvalidValue;
+  ClusterPlan plan;
+  cudaError_t err = bwd_planner.plan(N, 0, H, &plan);
   if (err != cudaSuccess) return (int)err;
   const int out[6] = {kSeqCluster, plan.rows, (int)plan.grid.x,
                       plan.max_clusters, (int)plan.block.x, (int)plan.smem};

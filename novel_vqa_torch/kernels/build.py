@@ -34,6 +34,8 @@ P, I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     "nvqa_lstm_seq_forward": [P] * 8 + [I] * 4 + [P],
     "nvqa_lstm_seq_launch_info": [I] * 3 + [P],
+    "nvqa_lstm_seq_backward": [P] * 7 + [I] * 3 + [P],
+    "nvqa_lstm_seq_backward_launch_info": [I] * 3 + [P],
     "nvqa_lstm_step_forward": [P] * 8 + [I] * 3 + [P],
     "nvqa_lstm_step_launch_info": [I] * 3 + [P],
     "nvqa_lstm_seq2_forward": [P] * 12 + [I] * 4 + [P],

@@ -28,12 +28,21 @@ card's SMs more than one CTA each: at N=500, H=512, 256 CTAs of 32 rows in
 one wave.  :func:`lstm_step_launch_info` reports its launch at a shape,
 with the CTAs an SM holds at once.
 
-The kernels compute forwards only: their outputs carry no ``grad_fn``.  So
-on a CUDA tensor each wrapper raises when grad mode is on and an input
-requires grad, rather than hand a training graph outputs that would cut it
-(:func:`refuse_grad`).  Training reaches these kernels only through an
-autograd Function whose backward is written out: ``ops/lstm_vjp.FusedSeq``
-(``NOVEL_VQA_SEQ_TRAIN=1``), as ``ops/lstm2.Fused2`` does the seq2 kernel.
+``lstm_seq_backward`` is the reverse scan of the seq kernel's gradient,
+the JAX package's ``_seq_bwd`` (pallas_lstm.py:279-374, an XLA scan
+there): from the gate pre-activations it rebuilds c and carries (dh, dc)
+from the last step to the first, giving the gate derivatives, in one
+launch per layer (``csrc/lstm.cu``'s seq backward kernel, a cluster kernel
+as the seq kernel; its plain version issues some 30 small operations a
+step).  :func:`lstm_seq_backward_launch_info` reports its launch.
+
+The kernels' outputs carry no ``grad_fn``.  So on a CUDA tensor each
+wrapper raises when grad mode is on and an input requires grad, rather
+than hand a training graph outputs that would cut it (:func:`refuse_grad`).
+Training reaches these kernels only through an autograd Function whose
+backward is written out: ``ops/lstm_vjp.FusedSeq``
+(``NOVEL_VQA_SEQ_TRAIN=1``, its backward through ``lstm_seq_backward``), as
+``ops/lstm2.Fused2`` does the seq2 kernel.
 
 Both take ``b = bx + bh`` (the Pallas kernels' convention) and weights
 stored (in, 4H), gate order i, f, o, g.
@@ -188,6 +197,94 @@ def launch_info(lib, kernel: str, N: int, In: int, H: int, device=None,
 def lstm_seq_launch_info(N: int, In: int, H: int, device=None) -> dict:
     """The seq kernel's launch at (N, In, H), as :func:`launch_info`."""
     return launch_info(library(SOURCE), "lstm_seq", N, In, H, device)
+
+
+def lstm_seq_backward_plain(gates, mask, wh, dhs, dh_fin, dc_fin) -> torch.Tensor:
+    """The reverse half of ``_seq_bwd`` (pallas_lstm.py:279-374) for one
+    masked layer from a zero state: the gate pre-activations (T, N, 4H),
+    the mask (T, N), ``wh`` (H, 4H), the cotangents of the hidden sequence
+    (T, N, H) and of the final (h, c) -> the gate derivatives (T, N, 4H).
+    An elementwise forward scan rebuilds c, then a reverse scan carries
+    (dh, dc) with one (N, 4H) x (4H, H) product a step."""
+    T = gates.shape[0]
+    m = mask[..., None]  # (T, N, 1)
+    i, f, o, g = gate_activations(gates)
+    # the pre-mask candidates c_new and the post-mask c_{t-1}
+    c = torch.zeros_like(i[0])
+    c_new_seq, c_prev_seq = [], []
+    for t in range(T):
+        c_new = f[t] * c + i[t] * g[t]
+        c_new_seq.append(c_new)
+        c_prev_seq.append(c)
+        c = torch.where(m[t] > 0, c_new, c)
+    c_prev = torch.stack(c_prev_seq)
+    tanh_c = torch.tanh(torch.stack(c_new_seq))
+    # the reverse scan
+    wh_t = wh.t()
+    dh_c, dc_c = dh_fin, dc_fin
+    dgates = [None] * T
+    for t in reversed(range(T)):
+        dh_t = dhs[t] + dh_c
+        dc_t = dc_c
+        dh_new = m[t] * dh_t
+        dc_new = m[t] * dc_t + dh_new * o[t] * (1.0 - tanh_c[t] * tanh_c[t])
+        do = dh_new * tanh_c[t]
+        di = dc_new * g[t]
+        df = dc_new * c_prev[t]
+        dg = dc_new * i[t]
+        dgates[t] = torch.cat(
+            [di * i[t] * (1.0 - i[t]), df * f[t] * (1.0 - f[t]),
+             do * o[t] * (1.0 - o[t]), dg * (1.0 - g[t] * g[t])], dim=-1)
+        dc_c = dc_new * f[t] + (1.0 - m[t]) * dc_t
+        dh_c = dgates[t] @ wh_t + (1.0 - m[t]) * dh_t
+    return torch.stack(dgates)
+
+
+def lstm_seq_backward(gates, mask, wh, dhs, dh_fin, dc_fin) -> torch.Tensor:
+    """Seq backward kernel wrapper: the gate derivatives of
+    :func:`lstm_seq_backward_plain`.  On a card they are written over
+    ``gates``, which is returned: the caller's pre-activations are
+    consumed.  Every device checks the shapes and contiguity; the kernel
+    takes f32 and H a multiple of 128, at most 2048."""
+    if gates.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_seq_backward: unsupported device {gates.device}")
+    if gates.dim() != 3 or wh.dim() != 2:
+        raise ValueError(f"lstm_seq_backward: gates {tuple(gates.shape)}, wh {tuple(wh.shape)}")
+    T, N, _ = gates.shape
+    H = wh.shape[0]
+    if T < 1 or N < 1:
+        raise ValueError(f"lstm_seq_backward: empty input of shape {tuple(gates.shape)}")
+    dev = gates.device
+    for name, t, shape in (
+        ("gates", gates, (T, N, 4 * H)), ("mask", mask, (T, N)), ("wh", wh, (H, 4 * H)),
+        ("dhs", dhs, (T, N, H)), ("dh_fin", dh_fin, (N, H)), ("dc_fin", dc_fin, (N, H)),
+    ):
+        check(name, t, shape, dev, gates.dtype if dev.type == "cpu" else torch.float32)
+    if dev.type == "cpu":
+        return lstm_seq_backward_plain(gates, mask, wh, dhs, dh_fin, dc_fin)
+    refuse_grad("lstm_seq_backward", gates, mask, wh, dhs, dh_fin, dc_fin)
+    if H % 128 or H > 2048:
+        raise ValueError(f"lstm_seq_backward: H={H}; the kernel takes a multiple of 128, at most 2048")
+    lib = library(SOURCE)
+    wh_t = wh.t().contiguous()
+    c_seq = torch.empty(T, N, H, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.nvqa_lstm_seq_backward(
+            gates.data_ptr(), mask.data_ptr(), wh_t.data_ptr(), dhs.data_ptr(),
+            dh_fin.data_ptr(), dc_fin.data_ptr(), c_seq.data_ptr(), T, N, H,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    raise_on(lib, err, f"lstm_seq_backward launch (T={T}, N={N}, H={H})")
+    lstm_seq_backward.launches += 1
+    return gates
+
+
+lstm_seq_backward.launches = 0
+
+
+def lstm_seq_backward_launch_info(N: int, H: int, device=None) -> dict:
+    """The seq backward kernel's launch at (N, H), as :func:`launch_info`."""
+    return launch_info(library(SOURCE), "lstm_seq_backward", N, 0, H, device)
 
 
 def lstm_step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:

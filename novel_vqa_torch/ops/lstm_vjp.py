@@ -4,9 +4,10 @@
 
 The forward is the kernel (``kernels/lstm.lstm_seq``), called from
 ``autograd.Function.forward``, where grad mode is off, so the wrapper's
-``refuse_grad`` guard lets it through.  The backward is the JAX package's,
-written out in plain PyTorch (XLA code there, not Pallas); its products
-are f32 ``torch.matmul``, as the JAX package leaves them to XLA.  The
+``refuse_grad`` guard lets it through.  The backward is the JAX package's
+(XLA code there, not Pallas): its large products are f32 ``torch.matmul``,
+as the JAX package leaves them to XLA, and its reverse scan is one launch
+of the seq backward kernel (``kernels/lstm.lstm_seq_backward``).  The
 backward reads no value back to the host, and autograd runs it on the
 stream the forward launched on.
 
@@ -19,9 +20,10 @@ default route's loss and was slower (PERF.md, Findings).
        saved post-mask ``hs`` shifted by one step (at a masked step
        ``hs[t]`` equals ``h_{t-1}``, which the kernel and ``lstm_seq_plain``
        both keep);
-    2. an elementwise forward scan rebuilds c (``ops/lstm2._rebuild_c``);
-    3. a reverse scan with one (N, 4H) x (4H, H) product per step
-       (``ops/lstm2._layer_reverse_step``);
+    2. an elementwise forward scan rebuilds c, and
+    3. a reverse scan with one (N, 4H) x (4H, H) product per step gives the
+       gate derivatives: both in ``lstm_seq_backward``, over the
+       pre-activations of step 1;
     4. dWx, dWh and dxs as single products over T*N.
   * :func:`seq_encode_train` (``pallas_lstm_encode_train``, :415-453): one
     :class:`FusedSeq` per layer, one (T, N, H) inter-layer dropout mask per
@@ -35,9 +37,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from novel_vqa_torch.kernels import lstm as kernels
-from novel_vqa_torch.kernels.lstm import gate_activations
 from novel_vqa_torch.ops.dropout import dropout
-from novel_vqa_torch.ops.lstm2 import _layer_reverse_step, _rebuild_c, _seq_mm
+from novel_vqa_torch.ops.lstm2 import _seq_mm
 
 
 class FusedSeq(torch.autograd.Function):
@@ -57,23 +58,13 @@ class FusedSeq(torch.autograd.Function):
     def backward(ctx, dc_fin, dh_fin, dhs):
         xs, mask, wx, wh, b, hs = ctx.saved_tensors
         T, N, _ = xs.shape
-        m = mask[..., None]  # (T, N, 1)
 
         # 1. the gates from xs and h_{t-1}: zeros at t = 0, then the saved hs
         h_prev = torch.cat([hs.new_zeros(1, N, hs.shape[-1]), hs[:-1]])
-        i, f, o, g = gate_activations(_seq_mm(xs, wx) + _seq_mm(h_prev, wh) + b)
-        # 2. the pre-mask candidates c_new and the post-mask c_{t-1}
-        c_new, c_prev = _rebuild_c(i, f, g, m)
-        tanh_c = torch.tanh(c_new)
-        # 3. the reverse scan: one product per step
-        wh_t = wh.t()
-        dh_c, dc_c = dh_fin, dc_fin
-        dgates = [None] * T
-        for t in reversed(range(T)):
-            dgates[t], dh_pass, dc_c = _layer_reverse_step(
-                dhs[t], dh_c, dc_c, i[t], f[t], o[t], g[t], c_prev[t], tanh_c[t], m[t])
-            dh_c = dgates[t] @ wh_t + dh_pass
-        dg = torch.stack(dgates).reshape(T * N, -1)
+        gates = _seq_mm(xs, wx) + _seq_mm(h_prev, wh) + b
+        # 2-3. the rebuild of c and the reverse scan, over the gates
+        dg = kernels.lstm_seq_backward(gates, mask, wh, dhs.contiguous(), dh_fin.contiguous(),
+                                       dc_fin.contiguous()).reshape(T * N, -1)
         # 4. products over the (T*N) axis
         return ((dg @ wx.t()).reshape(T, N, -1), None,
                 xs.reshape(T * N, -1).t() @ dg, h_prev.reshape(T * N, -1).t() @ dg, dg.sum(dim=0))

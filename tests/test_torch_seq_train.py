@@ -31,6 +31,7 @@ from novel_vqa_torch.models.vqa import arch1 as tarch1
 from novel_vqa_torch.ops import lstm as tlstm
 from novel_vqa_torch.ops import lstm_vjp
 from novel_vqa_torch.ops.dropout import dropout
+from novel_vqa_torch.ops.lstm2 import _layer_reverse_step, _rebuild_c
 from novel_vqa_torch.parallel.mesh import DPGroup
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -128,6 +129,91 @@ def test_fused_seq_forward_and_grads_match_jax(kind):
     _close(t_xs.grad, j_gxs)
     for k in ("wx", "wh", "bx", "bh"):
         _close(tp[k].grad, j_gp[k])
+
+
+# ---------------------------------------------------------------------------
+# the seq backward kernel's plain version and wrapper
+# ---------------------------------------------------------------------------
+
+def _bwd_case(kind, T_=T, N=7, H_=H, seed=13):
+    """Inputs of ``lstm_seq_backward``: gate pre-activations, a mask of
+    ``kind`` ("full": every row on every step; "ragged": right-aligned
+    lengths 1..T; "masked_step": ragged, with no row active on step T // 2),
+    Wh and the three cotangents."""
+    rs = np.random.RandomState(seed)
+    if kind == "full":
+        mask = np.ones((T_, N), np.float32)
+    else:
+        mask = _mask(rs, N, "ragged", T_)
+        if kind == "masked_step":
+            mask[T_ // 2] = 0.0
+    return (_t(2.0 * rs.randn(T_, N, 4 * H_)), _t(mask), _t(0.3 * rs.randn(H_, 4 * H_)),
+            _t(rs.randn(T_, N, H_)), _t(rs.randn(N, H_)), _t(rs.randn(N, H_)))
+
+
+def _scan_through_lstm2_helpers(gates, mask, wh, dhs, dh_fin, dc_fin):
+    """The seq backward's rebuild and reverse scan through ``Fused2``'s
+    helpers, ``ops/lstm2._rebuild_c`` and ``_layer_reverse_step``: the
+    reference the plain version is held to."""
+    m = mask[..., None]
+    i, f, o, g = K.gate_activations(gates)
+    c_new, c_prev = _rebuild_c(i, f, g, m)
+    tanh_c = torch.tanh(c_new)
+    dh_c, dc_c = dh_fin, dc_fin
+    dgates = [None] * gates.shape[0]
+    for t in reversed(range(gates.shape[0])):
+        dgates[t], dh_pass, dc_c = _layer_reverse_step(
+            dhs[t], dh_c, dc_c, i[t], f[t], o[t], g[t], c_prev[t], tanh_c[t], m[t])
+        dh_c = dgates[t] @ wh.t() + dh_pass
+    return torch.stack(dgates)
+
+
+@pytest.mark.parametrize("kind, T_", [("full", T), ("ragged", T), ("masked_step", T),
+                                      ("ragged", 1), ("ragged", 16)])
+def test_lstm_seq_backward_plain_is_the_helpers_scan(kind, T_):
+    """``lstm_seq_backward_plain`` gives, bit for bit, the gate derivatives
+    of the rebuild and reverse scan through the ``ops/lstm2`` helpers."""
+    args = _bwd_case(kind, T_)
+    got = K.lstm_seq_backward_plain(*args)
+    assert got.shape == args[0].shape
+    assert torch.equal(got, _scan_through_lstm2_helpers(*args))
+    if kind == "masked_step":  # no row active: zero derivatives
+        assert not got[T_ // 2].any()
+
+
+def test_lstm_seq_backward_runs_plain_on_cpu_and_counts_no_launch():
+    """On CPU tensors the wrapper is the plain version (its inputs left as
+    they were) and counts no launch."""
+    args = _bwd_case("ragged")
+    copies = [a.clone() for a in args]
+    before = K.lstm_seq_backward.launches
+    got = K.lstm_seq_backward(*args)
+    assert torch.equal(got, K.lstm_seq_backward_plain(*copies))
+    assert all(torch.equal(a, b) for a, b in zip(args, copies))
+    assert K.lstm_seq_backward.launches == before
+
+
+def _bwd_bad(case):
+    gates, mask, wh, dhs, dh_fin, dc_fin = _bwd_case("ragged")
+    if case == "shape":
+        dhs = dhs[:, :-1]
+    elif case == "mask_shape":
+        mask = mask[:-1]
+    elif case == "non_contiguous":
+        gates = gates.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "device":
+        gates, mask, wh, dhs, dh_fin, dc_fin = (a.to("meta") for a in (gates, mask, wh, dhs, dh_fin, dc_fin))
+    return gates, mask, wh, dhs, dh_fin, dc_fin
+
+
+@pytest.mark.parametrize("case, match", [("shape", "dhs: shape"), ("mask_shape", "mask: shape"),
+                                         ("non_contiguous", "gates: must be contiguous"),
+                                         ("device", "unsupported device")])
+def test_lstm_seq_backward_refuses_what_it_cannot_take(case, match):
+    """A wrong shape, a non-contiguous input or a device other than the CPU
+    and CUDA raises, on every device, before any work."""
+    with pytest.raises(ValueError, match=match):
+        K.lstm_seq_backward(*_bwd_bad(case))
 
 
 def _encode_case(seed, N=7):
