@@ -9,14 +9,17 @@ metrics; everything that belongs to one of them sits in a file of its own
 that the harness finds by name:
 
   * ``configs/<config>.json``: the widths as run, their source, what was
-    cut (``reduced``) or assumed, the dtype, and the names of the
-    configuration's plain reference (``refs/``) and FLOP count
-    (``flops/``);
+    cut (``reduced``) or assumed, the dtype, the names of the
+    configuration's plain reference (``refs/``), FLOP count (``flops/``)
+    and faults (``faults/``), and its widths at a CPU test's size;
   * ``workloads/<cell>.json``: the configuration, the entry it drives
     (``entries/``), the traffic's parameters and the generator that reads
     them (``traffic/``), the environment, the limits of the comparison
-    that decides ``correct``, and why the cell exists;
-  * ``metrics/<metric>.py``: one reader per per-layer metric.
+    that decides ``correct``, why the cell exists, and its rehearsals
+    (sizes on the CPU and the card, faults, spans) for the tests;
+  * ``metrics/<metric>.py``: one reader per metric.
+
+``spec.py`` lists the files a configuration and a cell bring.
 
 The harness imports ``torch`` and the port, never JAX nor the JAX package.
 """

@@ -7,7 +7,8 @@ Runs the cell in this process once per seed and mode, and prints one JSON
 line each with the numbers the check compared: ``program`` is the cell as
 the benchmark runs it; ``control`` puts the reference, computed with TF32
 on (the precision below the configurations' float32), in the program's
-place; any other mode is a fault of ``faults.py`` planted in the program.
+place; any other mode is a fault of the cell's configuration (``faults/``)
+planted in the program.
 Not part of a benchmark run.
 """
 
@@ -37,7 +38,8 @@ def main(argv=None) -> int:
         return 2
     for seed in (int(s) for s in args.seeds.split(",")):
         for mode in args.modes.split(","):
-            planted = contextlib.nullcontext() if mode in ("program", "control") else faults.plant(mode)
+            planted = (contextlib.nullcontext() if mode in ("program", "control")
+                       else faults.plant(args.workload, mode))
             t0 = time.perf_counter()
             with planted:
                 result, _ = harness.run(args.workload, seed, args.seconds, False,

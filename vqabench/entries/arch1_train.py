@@ -32,6 +32,8 @@ class Cell:
         dev = ctx.device
         store = ctx.make_traffic(p, c, C.generator(ctx.seed, "traffic", dev), dev)
         self.mean_len = float(store["lengths"].double().mean())
+        # right-aligned questions: only those of full length are active at step 0
+        self.full_share = float((store["lengths"] == c["seq_length"]).double().mean())
         self.data = {k: store[k] for k in ("tokens", "image", "img_pos", "answers")}
         params, self.ref_params = C.make_weights(ctx.ref.param_spec(c), ctx.seed, dev)
         self.cfg = arch1.Arch1Config(
@@ -83,7 +85,10 @@ class Cell:
 
     def work(self, first: int, count: int) -> dict:
         """Uniform sampling from the store draws the store's mean length per
-        question in expectation: the FLOPs at that many active tokens."""
+        question in expectation: the FLOPs at that many active tokens.  Per
+        step and layer one seq launch and one seq backward launch (the
+        route of the cell's ``NOVEL_VQA_SEQ_TRAIN``), the backward's
+        products at the active pairs past step 0."""
         c, F = self.ctx.cfg, self.ctx.flops
         questions = count * self.units_per_dispatch
         tokens = questions * self.mean_len
@@ -92,9 +97,11 @@ class Cell:
         pairs = self.B * self.mean_len
         per_step = [K.lstm_seq(T, self.B, c["input_encoding_size"] if k == 0 else H, H, pairs)
                     for k in range(c["rnn_layer"])]
+        backward = K.lstm_seq_backward(T, self.B, H, self.B * (self.mean_len - self.full_share))
         steps = count * self.S
         return {"model_flops": F.train(c, tokens, questions),
-                "kernels": {"lstm_seq": [(steps, f, b) for f, b in per_step]}}
+                "kernels": {"lstm_seq": [(steps, f, b) for f, b in per_step],
+                            "lstm_seq_backward": [(steps, *backward)] * c["rnn_layer"]}}
 
     def free(self):
         for name in ("params", "opt_state", "data", "tx"):

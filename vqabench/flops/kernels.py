@@ -30,3 +30,15 @@ def lstm_step(N: int, n_in: int, hidden: int):
     read = N * n_in + 2 * N * hidden + (n_in + hidden) * 4 * hidden + 4 * hidden
     written = 2 * N * hidden
     return gate_flops(N, n_in, hidden), F32 * (read + written)
+
+
+def lstm_seq_backward(T: int, N: int, hidden: int, later_pairs: float):
+    """(FLOPs, bytes) of one seq backward launch over T steps: the
+    (N, 4H) x (4H, H) product of the gate derivatives with Wh^T at the
+    ``later_pairs`` active (row, step) pairs past step 0 (step 0's would
+    give the initial state's gradient, which nothing reads); the gate
+    pre-activations read and overwritten by their derivatives, the mask,
+    Wh, the hidden sequence's cotangents and the final h's and c's read."""
+    gates = T * N * 4 * hidden
+    read = gates + T * N + hidden * 4 * hidden + T * N * hidden + 2 * N * hidden
+    return 2.0 * later_pairs * 4 * hidden * hidden, F32 * (read + gates)

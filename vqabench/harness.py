@@ -7,11 +7,15 @@ seed, builds the program's objects, takes the first steps a check needs
 and warms up every shape the window uses.  Then the harness calls
 ``cell.dispatch()`` (one call of the timed path) until ``seconds`` have
 passed, waits for the card, and reads the rate over all the work and all
-the time of the window.  With ``trace=True`` it then traces two segments
+the time of the window.  With ``trace=True`` it then runs three segments
 of ``cell.traced_dispatches`` more dispatches each: the card's activity
-alone, for the per-layer metrics, and then the host's as well, for the
-breakdown's idle gaps (``trace.py``).  Every metric, end-to-end or per
-layer, is read by its own reader, ``metrics/<name>.py``.
+traced alone, for the per-layer device metrics (``trace.py``); the
+program's tracer alone (``novel_vqa_torch.core.profiling.collect``, no
+profiler), for the span metrics and the result line's ``spans`` (each
+span's count and inclusive and self host ms per step or batch, beside the
+segment's host ms); and the host's activity traced as well, with the
+program's tracer on, for the breakdown's idle gaps.  Every metric,
+end-to-end or per layer, is read by its own reader, ``metrics/<name>.py``.
 After the memory peak is read, ``cell.free()`` lets the program's state
 go and ``cell.check(mode)`` compares what the timed path produced with
 the configuration's plain reference.
@@ -21,10 +25,24 @@ The entry contract, besides those three calls: ``units_per_dispatch``
 ``work(first, count)`` (the model FLOPs and each kernel's per-launch
 work of dispatches ``first .. first+count-1``, counting from the first
 window dispatch) and ``dispatched`` (dispatches so far after set-up).
+
+What a reader's ``read(m)`` gets in ``m``: ``setup_s``, ``window_s``,
+``window_peak_bytes``, ``dispatches``, ``steps``, ``units`` and
+``host_s`` of the window; ``model_flops`` of its work; ``counters``, the
+window's increments of the port's launch counters by name (every integer
+``launches`` attribute of a callable in an imported
+``novel_vqa_torch.kernels`` module); ``peaks``, the card's (None off the
+table); and with ``trace=True`` ``trace`` (the card-only segment's
+:class:`trace.Trace`), ``traced`` (its ``dispatches``, ``steps`` and
+each kernel's per-launch work) and ``spans`` (per program span name its
+``count`` and inclusive and self host seconds, ``total_s`` and
+``self_s``, over a segment of ``traced.dispatches``; None without the
+program's tracer).  Without ``trace`` those three are None.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import importlib.util
 import math
@@ -42,18 +60,12 @@ from vqabench import spec as S
 from vqabench import trace as T
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "novel_vqa_tpu")
+KERNELS = "novel_vqa_torch.kernels."
 
 
 def forbidden_modules():
     """The JAX modules loaded in this process, by whole top-level name."""
     return sorted({name.split(".")[0] for name in sys.modules} & set(FORBIDDEN))
-
-
-def _merge(base: dict, over: Optional[dict]) -> dict:
-    out = dict(base)
-    for k, v in (over or {}).items():
-        out[k] = _merge(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
-    return out
 
 
 def _reader(name: str) -> types.ModuleType:
@@ -70,17 +82,46 @@ def _sync(device) -> None:
 
 
 def _counters() -> dict:
-    """The port's kernel launch counters, where it has them."""
+    """The port's kernel launch counters: the integer ``launches``
+    attribute of every callable defined in a ``novel_vqa_torch.kernels``
+    module that this process has already imported, by the callable's name
+    (qualified by its module where two modules share it).  Imports
+    nothing."""
     out = {}
-    try:
-        from novel_vqa_torch.kernels import lstm as K
-    except ImportError:
-        return out
-    for name in ("lstm_seq", "lstm_step"):
-        fn = getattr(K, name, None)
-        if fn is not None and isinstance(getattr(fn, "launches", None), int):
-            out[name] = fn.launches
+    for mod_name in sorted(m for m in sys.modules if m.startswith(KERNELS)):
+        module = sys.modules[mod_name]
+        for name, fn in sorted(vars(module).items()):
+            count = getattr(fn, "launches", None)
+            if not callable(fn) or getattr(fn, "__module__", None) != mod_name \
+                    or not isinstance(count, int):
+                continue
+            out[name if name not in out else f"{mod_name[len(KERNELS):]}.{name}"] = count
     return out
+
+
+def _span_seconds(rec) -> dict:
+    """A program tracer record's spans by name: count, inclusive and self
+    host seconds."""
+    return {name: {"count": st.count, "total_s": st.total_ns / 1e9, "self_s": st.self_ns / 1e9}
+            for name, st in rec.stats().items()}
+
+
+def context(bench: S.Bench, workload: str, seed: int, device: str, overrides: Optional[dict]):
+    """The cell's workload and configuration with ``overrides`` merged in,
+    its environment set, and the ``ctx`` its entry's ``Cell`` takes."""
+    cell_spec = S.merge(bench.cells[workload], (overrides or {}).get("cell"))
+    config = S.merge(bench.configs[cell_spec["config"]], (overrides or {}).get("config"))
+    os.environ.update({k: str(v) for k, v in cell_spec.get("env", {}).items()})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    traffic = cell_spec["traffic"]
+    ctx = types.SimpleNamespace(
+        cfg=config, traffic=traffic, seed=int(seed), device=torch.device(device),
+        ref=importlib.import_module(f"vqabench.refs.{config['reference']}"),
+        flops=importlib.import_module(f"vqabench.flops.{config['flops']}"),
+        make_traffic=importlib.import_module(f"vqabench.traffic.{traffic['generator']}").make,
+    )
+    return cell_spec, ctx
 
 
 def run(workload: str, seed: int, seconds: float, trace: bool, *, t_start: float,
@@ -92,21 +133,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, t_start: float
     ``program`` or ``control`` (the reference, in a lower precision, in the
     program's place: a calibration, never a benchmark run)."""
     bench = S.load()
-    cell_spec = _merge(bench.cells[workload], (overrides or {}).get("cell"))
-    config = _merge(bench.configs[cell_spec["config"]], (overrides or {}).get("config"))
-    os.environ.update({k: str(v) for k, v in cell_spec.get("env", {}).items()})
-    if config["dtype"] != "float32_tf32_off":
-        raise S.SpecError(f"dtype {config['dtype']!r}: only float32_tf32_off is served")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device(device)
-    traffic = cell_spec["traffic"]
-    ctx = types.SimpleNamespace(
-        cfg=config, traffic=traffic, seed=int(seed), device=dev,
-        ref=importlib.import_module(f"vqabench.refs.{config['reference']}"),
-        flops=importlib.import_module(f"vqabench.flops.{config['flops']}"),
-        make_traffic=importlib.import_module(f"vqabench.traffic.{traffic['generator']}").make,
-    )
+    cell_spec, ctx = context(bench, workload, seed, device, overrides)
+    if ctx.cfg["dtype"] != "float32_tf32_off":
+        raise S.SpecError(f"dtype {ctx.cfg['dtype']!r}: only float32_tf32_off is served")
+    dev = ctx.device
     entry = importlib.import_module(f"vqabench.entries.{cell_spec['entry']}")
     t_cell = time.perf_counter()
     cell = entry.Cell(ctx)
@@ -137,7 +167,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, t_start: float
     ctx_metrics = types.SimpleNamespace(
         setup_s=setup_s, window_s=window_s, window_peak_bytes=window_peak, dispatches=n,
         steps=n * cell.steps_per_dispatch, units=n * cell.units_per_dispatch, host_s=host_s,
-        model_flops=work["model_flops"], trace=None, traced=None,
+        model_flops=work["model_flops"], counters=launches, trace=None, traced=None, spans=None,
         peaks=P.of(torch.cuda.get_device_name(dev) if cuda else None),
     )
 
@@ -161,7 +191,19 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, t_start: float
         tw = cell.work(start - first, k)
         ctx_metrics.traced = types.SimpleNamespace(
             dispatches=k, steps=k * cell.steps_per_dispatch, kernels=tw["kernels"])
-        gaps = T.idle_gaps(labelled)
+        # the program's spans, after the card-only segment: where a profiler
+        # has traced the card once, a host-paced cell's issue can stay slower
+        # for the rest of the process, and the spans read that host
+        collect = T.tracer()
+        if collect is not None:
+            a = time.perf_counter()
+            with collect() as rec:
+                body()
+            span_host_s = time.perf_counter() - a
+            _sync(dev)
+            ctx_metrics.spans = _span_seconds(rec)
+        with collect() if collect is not None else contextlib.nullcontext():
+            gaps = T.profile_gaps(labelled)["gaps"]
     peak = max(peak, window_peak, torch.cuda.max_memory_allocated(dev) if cuda else 0)
     cell.free()
     if cuda:
@@ -198,6 +240,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, t_start: float
         device_info["busy_s"] = tr.busy_s
         device_info["window_s"] = tr.window_s
         result["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": gaps}
+        if ctx_metrics.spans is not None:
+            steps = ctx_metrics.traced.steps
+            result["spans"] = {
+                "host_ms_per_step": 1e3 * span_host_s / steps,
+                "by_name": {name: {"count": st["count"], "ms_per_step": 1e3 * st["total_s"] / steps,
+                                   "self_ms_per_step": 1e3 * st["self_s"] / steps}
+                            for name, st in sorted(ctx_metrics.spans.items())}}
     result["launches"] = launches
     # set-up before the cell (interpreter, torch, the card) and the cell's own
     result["setup_parts_s"] = {"before_cell": t_cell - t_start, "cell": w0 - t_cell}

@@ -5,15 +5,38 @@ added by adding files, which :func:`load` finds by the names in
 ``BENCHMARK.json`` and checks against the benchmark's rules (the keys of
 each entry, the characters of names and units, that every file named
 exists).  Nothing here imports torch.
+
+A configuration ``<config>`` brings, besides its entry in ``BENCHMARK.json``:
+  * ``configs/<config>.json``: the widths as run, their source, what was
+    cut or assumed, the dtype, the module names of its reference, FLOP
+    count and faults, and under ``rehearse.cpu`` its widths cut to a size
+    a CPU test holds;
+  * ``refs/<reference>.py``: the plain reference (torch only);
+  * ``flops/<flops>.py``: the model FLOPs the MFU readers divide;
+  * ``faults/<faults>.py``: ``FAULTS``, the faults its cells can have, by
+    name (``faults/__init__.py`` says how one is planted).
+A cell ``<cell>`` brings:
+  * ``workloads/<cell>.json``: the configuration, the entry, the
+    traffic's parameters and generator, the environment, the limits of
+    ``correct``, and ``rehearse``: ``cpu`` and ``card``, the overrides
+    (``config``, ``cell``) that size its rehearsals on the CPU and on the
+    card, ``faults``, the names of the faults planted under it in the
+    tests, ``spans``, the program spans its calls hold, and
+    ``card_counts``, the counter readings its card rehearsal must give;
+  * ``entries/<entry>.py`` and ``traffic/<generator>.py``, where it drives
+    a new entry point or reads a new kind of traffic;
+  * ``metrics/<metric>.py`` for each new metric: ``read(m)`` of the
+    harness's readings (``harness.py`` lists them).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import re
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 PACKAGE = Path(__file__).resolve().parent
 NAME_RE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -27,7 +50,12 @@ WORKLOAD_KEYS = {"name", "config", "traffic", "chips", "why"}
 E2E_KEYS = {"name", "unit", "better", "bound", "source"}
 LAYER_KEYS = {"name", "unit", "better", "source", "layer", "moves"}
 CELL_FILE_KEYS = {"config", "entry", "traffic", "limits", "why"}
-CONFIG_FILE_REQUIRED = {"name", "source", "reduced", "assumed", "dtype", "reference", "flops"}
+CELL_FILE_OPTIONAL = {"env", "rehearse"}
+REHEARSE_KEYS = {"cpu", "card", "faults", "spans"}
+REHEARSE_OPTIONAL = {"card_counts"}
+SIZES = ("cpu", "card")
+CONFIG_FILE_REQUIRED = {"name", "source", "reduced", "assumed", "dtype", "reference", "flops",
+                        "faults"}
 
 
 class SpecError(ValueError):
@@ -50,6 +78,23 @@ class Bench:
         layer = [m for m in self.per_layer.values()
                  if m["moves"] in moved and cell in m.get("workloads", [cell])]
         return e2e, layer
+
+    def rehearsal(self, cell: str, where: str) -> dict:
+        """The overrides that size ``cell``'s rehearsal ``where`` (``cpu``
+        or ``card``), as ``harness.run`` takes them: the configuration's
+        own widths at that size, then the cell's."""
+        body = self.cells[cell]
+        sizes = body["rehearse"][where]
+        base = self.configs[body["config"]].get("rehearse", {}).get(where, {})
+        return {"config": merge(base, sizes.get("config")), "cell": sizes.get("cell", {})}
+
+
+def merge(base: dict, over: Optional[dict]) -> dict:
+    """``base`` with ``over`` merged in, nested dicts key by key."""
+    out = dict(base)
+    for k, v in (over or {}).items():
+        out[k] = merge(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
+    return out
 
 
 def _line(text, what: str, limit: int = 200) -> None:
@@ -88,6 +133,41 @@ def _module(kind: str, name: str) -> Path:
     return path
 
 
+def fault_names(name: str) -> set:
+    """The faults that ``faults/<name>.py`` defines (its ``FAULTS``), read
+    from the file; a fault module imports neither torch nor the port."""
+    path = _module("faults", name)
+    mod_spec = importlib.util.spec_from_file_location(f"vqabench_faults_of_{name}", path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return set(mod.FAULTS)
+
+
+def _sizes(value, what: str) -> None:
+    if not isinstance(value, dict) or set(value) - {"config", "cell"} or \
+            not all(isinstance(v, dict) for v in value.values()):
+        raise SpecError(f"{what}: a dict of overrides, 'config' and 'cell', each a dict")
+
+
+def _rehearse(body: dict, faults: set, what: str) -> None:
+    r = body["rehearse"]
+    if not isinstance(r, dict):
+        raise SpecError(f"{what} rehearse: a dict")
+    _keys(r, REHEARSE_KEYS, REHEARSE_OPTIONAL, f"{what} rehearse")
+    for where in SIZES:
+        _sizes(r[where], f"{what} rehearse.{where}")
+    for key in ("faults", "spans"):
+        if not isinstance(r[key], list) or not all(isinstance(x, str) for x in r[key]):
+            raise SpecError(f"{what} rehearse.{key}: a list of names")
+    unknown = set(r["faults"]) - faults
+    if unknown:
+        raise SpecError(f"{what} rehearse.faults: no such fault {sorted(unknown)}")
+    counts = r.get("card_counts", {})
+    if not isinstance(counts, dict) or \
+            not all(isinstance(v, (int, float)) for v in counts.values()):
+        raise SpecError(f"{what} rehearse.card_counts: metric names to numbers")
+
+
 def load(root: Path | str | None = None) -> Bench:
     """Read ``<root>/BENCHMARK.json`` (the checkout this package lies in by
     default) and every file it names; raise :class:`SpecError` on a
@@ -102,7 +182,7 @@ def load(root: Path | str | None = None) -> Bench:
         if not re.match(r"^[A-Za-z0-9_.\-/]{1,200}$", p) or p.startswith("/") or ".." in p:
             raise SpecError(f"paths: {p!r}")
 
-    configs = {}
+    configs, faults = {}, {}
     for c in _unique(raw["configs"], "config").values():
         _keys(c, CONFIG_KEYS, set(), f"config {c['name']}")
         _line(c["source"], f"config {c['name']} source")
@@ -123,7 +203,12 @@ def load(root: Path | str | None = None) -> Bench:
             raise SpecError(f"{c['file']}: reduced differs from BENCHMARK.json")
         _module("refs", body["reference"])
         _module("flops", body["flops"])
+        rehearse = body.get("rehearse", {})
+        if not isinstance(rehearse, dict) or set(rehearse) - set(SIZES) or \
+                not all(isinstance(v, dict) for v in rehearse.values()):
+            raise SpecError(f"{c['file']}: rehearse maps cpu or card to a dict of widths")
         configs[c["name"]] = body
+        faults[c["name"]] = fault_names(body["faults"])
 
     e2e = _unique(raw["end_to_end"], "metric")
     layer = _unique(raw["per_layer"], "metric")
@@ -147,9 +232,11 @@ def load(root: Path | str | None = None) -> Bench:
             raise SpecError(f"{what}: the pair {w['config']}/{w['traffic']} appears twice")
         pairs.add((w["config"], w["traffic"]))
         body = json.loads((PACKAGE / "workloads" / f"{w['name']}.json").read_text())
-        _keys(body, CELL_FILE_KEYS, {"env"}, f"workloads/{w['name']}.json")
+        _keys(body, CELL_FILE_KEYS, CELL_FILE_OPTIONAL, f"workloads/{w['name']}.json")
         if body["config"] != w["config"] or body["traffic"].get("name") != w["traffic"]:
             raise SpecError(f"workloads/{w['name']}.json: config or traffic name differs")
+        if "rehearse" in body:
+            _rehearse(body, faults[w["config"]], f"workloads/{w['name']}.json")
         _module("entries", body["entry"])
         _module("traffic", body["traffic"].get("generator"))
         cells[w["name"]] = dict(body, name=w["name"], chips=w["chips"])
@@ -185,6 +272,10 @@ def load(root: Path | str | None = None) -> Bench:
         if "setup_s" not in names or len(names) < 2 or not got_layer:
             raise SpecError(f"workload {name}: reports setup_s, another end-to-end metric "
                             "and a per-layer metric")
+        counted = set(cells[name].get("rehearse", {}).get("card_counts", {}))
+        if counted - {m["name"] for m in got_layer}:
+            raise SpecError(f"workload {name}: card_counts names metrics it does not report: "
+                            f"{sorted(counted - {m['name'] for m in got_layer})}")
     for name in configs:
         if not any(c["config"] == name for c in cells.values()):
             raise SpecError(f"config {name}: no cell uses it")

@@ -50,6 +50,27 @@ def test_kernel_counts(n_in):
     assert b == 4 * (N * n_in + 2 * N * H + (n_in + H) * 4 * H + 4 * H + 2 * N * H)
 
 
+def test_seq_backward_counts_by_hand():
+    T, N, H, pairs = 16, 500, 512, 3000
+    f, b = K.lstm_seq_backward(T, N, H, pairs)
+    assert f == 2 * pairs * 4 * H * H
+    # gate pre-activations read and overwritten; mask, Wh, dhs, final dh and dc read
+    assert b == 4 * (2 * T * N * 4 * H + T * N + H * 4 * H + T * N * H + 2 * N * H)
+
+
+def test_seq_backward_bound_at_the_kernel_row_shape():
+    """At (T, N, H) = (16, 500, 512) on right-aligned lengths drawn
+    uniformly from 1..16 (the kernel table's shape; bounds 0.131 ms and
+    0.134 ms for its two draws): operations bind, at the expected active
+    pairs past step 0, N * (mean length - the share of full length)."""
+    from vqabench.peaks import PEAKS, bound_seconds
+    p = PEAKS["NVIDIA H100 80GB HBM3"]
+    T, N, H = 16, 500, 512
+    f, b = K.lstm_seq_backward(T, N, H, N * (sum(range(1, T + 1)) / T - 1 / T))
+    assert f / p["fp32"] > b / p["hbm"]
+    assert 0.131e-3 <= bound_seconds([(1, f, b)], p) <= 0.134e-3
+
+
 def test_bound_takes_the_larger_per_launch():
     from vqabench.peaks import PEAKS, bound_seconds
     p = PEAKS["NVIDIA H100 80GB HBM3"]

@@ -42,10 +42,9 @@ def test_references_and_counts_take_nothing_of_the_port(kind):
 def test_a_rehearsed_run_of_every_cell_loads_no_jax():
     script = (
         "import json, sys\n"
-        "from vqabench.tests.conftest import rehearse\n"
+        "from vqabench.tests.conftest import CELLS, rehearse\n"
         "from vqabench import harness\n"
-        "ok = [rehearse(w)[0]['correct'] for w in "
-        "('arch1.train', 'arch1.eval', 'text_ae.train', 'text_ae.val')]\n"
+        "ok = {w: rehearse(w)[0]['correct'] for w in CELLS}\n"
         "print(json.dumps({'ok': ok, 'loaded': harness.forbidden_modules(),\n"
         "                  'tops': sorted({m.split('.')[0] for m in sys.modules})}))\n"
     )
@@ -53,7 +52,7 @@ def test_a_rehearsed_run_of_every_cell_loads_no_jax():
                          text=True, timeout=300, env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "2"})
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert all(got["ok"])
+    assert got["ok"] and all(got["ok"].values()), got["ok"]
     assert got["loaded"] == []
     assert not set(got["tops"]) & FORBIDDEN
     assert "novel_vqa_torch" in got["tops"]

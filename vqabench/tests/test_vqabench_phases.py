@@ -1,54 +1,53 @@
-"""``phases.py``: the program's spans read in a cell, on the CPU at a small
-size; the idle gaps' labels on a synthetic profile."""
+"""The program's spans read in each cell through the harness's span
+segment, on the CPU at its rehearsal size; the tracer's cost
+(``phases.py``); the idle gaps' labels (``trace.label_gaps``) on a
+synthetic profile."""
 
 import pytest
 
-from vqabench import phases
-from vqabench.tests.conftest import SMALL_CELL, SMALL_CONFIG
+from vqabench import phases, spec
+from vqabench import trace as T
+from vqabench.tests.conftest import CELLS, rehearse
 
-# the spans each cell's calls must hold, and those that cover its host time
-SPANS = {
-    "arch1.train": {"train.sample", "train.forward", "train.backward", "train.reduce",
-                    "train.update", "lstm.encode"},
-    "text_ae.train": {"train.sample", "train.forward", "train.backward", "train.reduce",
-                      "train.update", "lstm.encode"},
-    "arch1.eval": {"eval.upload", "lstm.encode"},
-    "text_ae.val": {"ae.nll", "ae.greedy", "lstm.encode"},
-}
+BENCH = spec.load()
 
 
 def _cell(workload):
-    name = workload.split(".")[0]
     return phases.make_cell(workload, 20260418, device="cpu",
-                            overrides={"config": SMALL_CONFIG[name],
-                                       "cell": SMALL_CELL[workload]})
+                            overrides=BENCH.rehearsal(workload, "cpu"))
 
 
-@pytest.mark.parametrize("workload", sorted(SPANS))
+@pytest.mark.parametrize("workload", sorted(CELLS))
 def test_each_cell_reads_its_spans(workload, two_threads):
+    """The spans each cell's calls must hold (its ``rehearse.spans``), as
+    ``harness.run(trace=True)`` reads them, and the tracer's cost."""
+    result, lines = rehearse(workload, 20260418, trace=True)
+    assert result["correct"], lines
+    spans = result["spans"]
+    assert set(spans["by_name"]) == set(BENCH.cells[workload]["rehearse"]["spans"])
     cell = _cell(workload)
-    out = phases.measure(cell, seconds=0.05, rounds=2)
-    cell.free()
-    spans = out["spans"]
-    assert set(spans["by_name"]) == SPANS[workload]
     k, per = cell.traced_dispatches, cell.steps_per_dispatch
     for name, st in spans["by_name"].items():
         assert st["ms_per_step"] > 0 and st["self_ms_per_step"] <= st["ms_per_step"]
         if name.startswith("train."):
             assert st["count"] == k * per
-    assert 0 < spans["covered_share"] <= 1
+    assert spans["host_ms_per_step"] > 0
+    out = phases.measure(cell, rounds=2)
+    cell.free()
+    assert 0 < out["covered_share"] <= 1
     assert len(out["on_cost"]["on_ms_per_step"]) == len(out["on_cost"]["off_ms_per_step"]) == 2
-    assert out["window"]["host_ms_per_step"] > 0
 
 
 def test_without_the_tracer_the_span_readings_are_none(monkeypatch, two_threads):
-    monkeypatch.setattr(phases, "_tracer", lambda: None)
+    monkeypatch.setattr(T, "tracer", lambda: None)
+    result, lines = rehearse("text_ae.val", 20260418, trace=True)
+    assert result["correct"], lines
+    assert "spans" not in result and result["breakdown"]["idle_gaps"] is not None
+    assert not any("/nvqa." in label for label, _ in result["breakdown"]["idle_gaps"])
     cell = _cell("text_ae.val")
-    out = phases.measure(cell, seconds=0.05, rounds=2)
+    out = phases.measure(cell, rounds=2)
     cell.free()
-    assert out["spans"] is None and out["on_cost"] is None
-    assert out["idle_gaps"]["program_share"] in (0.0, None)
-    assert out["window"]["host_ms_per_step"] > 0
+    assert out == {"on_cost": None, "covered_share": None}
 
 
 def _x(cat, name, ts, dur, tid=1):
@@ -68,7 +67,7 @@ def test_gap_labels_name_the_innermost_program_span():
         _x("kernel", "k2", 20, 40, tid=7), _x("kernel", "k3", 70, 25, tid=7),
         _x("cpu_op", "aten::other_thread", 9, 3, tid=2),
     ]
-    got = phases.label_gaps(events)
+    got = T.label_gaps(events)
     gaps = dict(got["gaps"])
     # 10-12 inside forward, 15-20 inside the encode (starting in python beside aten::mm)
     assert gaps == {
@@ -79,5 +78,5 @@ def test_gap_labels_name_the_innermost_program_span():
     }
     assert got["program_share"] == pytest.approx(17 / 22)
     assert got["listed_share"] == got["program_share"]
-    assert phases.label_gaps(events[1:]) == {"gaps": [], "program_share": None,
+    assert T.label_gaps(events[1:]) == {"gaps": [], "program_share": None,
                                              "listed_share": None}

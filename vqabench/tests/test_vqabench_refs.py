@@ -8,13 +8,18 @@ import torch
 from vqabench import common as C
 from vqabench.refs import arch1 as R1
 from vqabench.refs import text_ae as RX
-from vqabench.tests.conftest import SMALL_CONFIG
 from vqabench.spec import PACKAGE
 import json
 
-CFG1 = {**json.loads((PACKAGE / "configs" / "arch1.json").read_text()), **SMALL_CONFIG["arch1"]}
-CFGX = {**json.loads((PACKAGE / "configs" / "text_ae.json").read_text()),
-        **SMALL_CONFIG["text_ae"]}
+
+def _small(name):
+    """A configuration at its CPU widths (``rehearse.cpu`` of its file)."""
+    cfg = json.loads((PACKAGE / "configs" / f"{name}.json").read_text())
+    return {**cfg, **cfg["rehearse"]["cpu"]}
+
+
+CFG1 = _small("arch1")
+CFGX = _small("text_ae")
 
 
 def _arch1_port():

@@ -11,8 +11,9 @@ with the program.
 whose own idle share the device metrics report.  Tracing the host's
 operators as well slows the host's issue much more (on an H100, arch1's
 training step took 21.9 ms untraced, 39-40 with the card's activity
-traced, 52 with the host's too), so only :func:`idle_gaps`, which says
-what the host was doing in each gap, traces both, in a segment of its own.
+traced, 52 with the host's too), so only :func:`profile_gaps`, which says
+what the host was doing in each gap (the breakdown's ``idle_gaps``),
+traces both, in a segment of its own.
 """
 
 from __future__ import annotations
@@ -128,12 +129,46 @@ def capture(body: Callable[[], None]) -> Trace:
     return Trace(window_s, ops)
 
 
-def idle_gaps(body: Callable[[], None], k: int = 10) -> List[list]:
+def tracer():
+    """The program's ``collect`` (``novel_vqa_torch.core.profiling``), or
+    None where the port has no tracer."""
+    try:
+        from novel_vqa_torch.core.profiling import collect
+    except ImportError:
+        return None
+    return collect
+
+
+def span_seconds(m, name: str):
+    """The inclusive host seconds of the program span ``name`` in a run's
+    span segment (a reader's ``m.spans``); None where the run has no span
+    segment or the span never opened."""
+    if m.spans is None or name not in m.spans:
+        return None
+    return m.spans[name]["total_s"]
+
+
+def _innermost(ranges, default: str) -> Callable[[float], str]:
+    """The name of the innermost of one thread's nested ranges that holds t."""
+    ranges = sorted(ranges)
+
+    def at(t: float) -> str:
+        best = default
+        for s, e, name in ranges:
+            if s > t:
+                break
+            if t < e:
+                best = name
+        return best
+
+    return at
+
+
+def profile_gaps(body: Callable[[], None], k: int = 10) -> dict:
     """Run ``body`` with the host's operators and the card's activity
-    traced, and return the idle seconds of the card by what the host was
-    doing when each gap began: the harness span (:func:`span`) and the
-    host operator it was in ("python" between operators), summed per
-    label, the longest k."""
+    traced, and return :func:`label_gaps` of the trace.  Inside the
+    program's ``collect()`` its spans lie in the trace as ``nvqa.*``
+    ranges, and the labels carry them."""
     from torch.profiler import ProfilerActivity, record_function, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
@@ -142,17 +177,29 @@ def idle_gaps(body: Callable[[], None], k: int = 10) -> List[list]:
             body()
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
-    events = _events(prof)
+    return label_gaps(_events(prof), k)
+
+
+def label_gaps(events: List[dict], k: int = 10) -> dict:
+    """The card's idle gaps in a profile's complete events, in seconds by
+    what the host was doing when each began: ``<harness span>/<innermost
+    nvqa.* span>/<host operator>`` (``<harness span>/<host operator>``
+    outside every program span; the harness span is :func:`span`'s,
+    "harness" outside them, the host operator "python" between
+    operators), summed per label: ``{"gaps": the k longest labels,
+    "program_share": the share of all idle seconds whose label holds a
+    program span, "listed_share": that share of the k listed}``."""
     seg = [e for e in events if e["cat"] == "user_annotation" and e["name"] == SPAN]
     if not seg:
-        return []
+        return {"gaps": [], "program_share": None, "listed_share": None}
     window = _interval(seg[0])[:2]
     tid = seg[0].get("tid")
     ops = [_interval(e) for e in events if e["cat"] in DEVICE_CATS]
-    host = _outermost([_interval(e) for e in events if e["cat"] == "cpu_op" and e.get("tid") == tid])
-    spans = _outermost([_interval(e) for e in events if e["cat"] == "user_annotation"
-                        and e.get("tid") == tid and e["name"].startswith("vqabench.")
-                        and e["name"] != SPAN])
+    mine = [e for e in events if e.get("tid") == tid]
+    host = _outermost([_interval(e) for e in mine if e["cat"] == "cpu_op"])
+    notes = [_interval(e) for e in mine if e["cat"] == "user_annotation"]
+    harness = _outermost([iv for iv in notes if iv[2].startswith("vqabench.") and iv[2] != SPAN])
+    program = _innermost([iv for iv in notes if iv[2].startswith("nvqa.")], "")
     gaps, t = [], window[0]
     for s, e in _union(ops, window):
         if s > t:
@@ -160,16 +207,26 @@ def idle_gaps(body: Callable[[], None], k: int = 10) -> List[list]:
         t = max(t, e)
     if window[1] > t:
         gaps.append((t, window[1]))
-    span_at, op_at = _finder(spans, "harness"), _finder(host, "python")
+    span_at, op_at = _finder(harness, "harness"), _finder(host, "python")
     by = defaultdict(float)
     for g0, g1 in gaps:
-        by[f"{span_at(g0)}/{op_at(g0)}"] += (g1 - g0) / 1e6
-    return [[n, v] for n, v in sorted(by.items(), key=lambda kv: -kv[1])[:k]]
+        inner = program(g0)
+        label = f"{span_at(g0)}/{inner}/{op_at(g0)}" if inner else f"{span_at(g0)}/{op_at(g0)}"
+        by[label] += (g1 - g0) / 1e6
+    ranked = sorted(by.items(), key=lambda kv: -kv[1])
+    listed = ranked[:k]
+
+    def share(items):
+        total = sum(v for _, v in items)
+        return sum(v for n, v in items if "/nvqa." in n) / total if total else None
+
+    return {"gaps": [[n, v] for n, v in listed], "program_share": share(ranked),
+            "listed_share": share(listed)}
 
 
 def span(name: str):
     """A harness span, ``vqabench.<name>``, around a call in the segment of
-    :func:`idle_gaps`, whose gaps are labelled by it."""
+    :func:`profile_gaps`, whose gaps are labelled by it."""
     from torch.profiler import record_function
 
     return record_function(f"vqabench.{name}")
